@@ -6,18 +6,24 @@ Phases, one printed line (or a few) each; any failure raises, so the
 script exits non-zero without the final line:
 
 1. device: card name, power limit, torch / CUDA / nvcc versions;
-2. build: compiles orb_slam2_map_tpu_torch/csrc/gated_nn.cu with nvcc;
-3. kernel: the gated-NN kernel against its plain PyTorch version on the
-   card, at the tracking path's shapes, exact equality required, with
-   CUDA-event timings of both;
-4. slice: the port's Tracker over a 120-frame 640x480 sweep with sensor
-   noise (TUM1 ORB settings), 0 lost frames and raw ATE <= 2 cm
-   required, and the kernel's launch count on that run;
-5. fused: `fused_frame_step` over the next 10 frames of the (periodic)
-   sweep from the tracker's last state;
-6. the kernels' JSON line, then the result line.
+2. build: compiles every kernel under orb_slam2_map_tpu_torch/csrc/ with
+   nvcc, one process per source, all started together (ptxas -v lines);
+3. kernels: each kernel against its plain PyTorch version on the card, at
+   the shapes its paths give it, exact equality required; CUDA-event
+   timings of the kernel, the plain version and (where one exists) the
+   single PyTorch call computing the same function, beside the bound;
+4. slice: the port's Tracker over a 120-frame 640x480 RGB-D sweep with
+   sensor noise (TUM1 ORB settings), 0 lost frames and raw ATE <= 2 cm;
+5. fused: `fused_frame_step` over the next 10 frames of the sweep;
+6. stereo: SLAMSystem(Sensor.STEREO, local mapping, no loop closing) at
+   KITTI 00-02 width (1241x376, 2000 features, 2040 keypoint slots) over
+   a 60-frame stereo sweep, 0 lost frames and raw ATE <= 2 cm, with the
+   per-stage times of its profile;
+7. the kernels' JSON line, the card line, then the result line.
 
-It needs CUDA and the checkout it sits in; it imports no JAX.
+Each kernel counts its launches; the counts are set to 0 right before a
+path runs and read right after, and every kernel of a path must have
+run in it. It needs CUDA and the checkout it sits in; it imports no JAX.
 """
 
 from __future__ import annotations
@@ -34,11 +40,24 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
 
-N_FRAMES = 120          # 4 s of 30 fps sensor data
+N_FRAMES = 120          # RGB-D: 4 s of 30 fps sensor data
 N_FUSED = 10
+N_STEREO = 60           # stereo: 6 s of 10 fps KITTI-rate data
+# the sweep's default 0.4 m amplitude is too little motion for the
+# KITTI camera's 81-degree field of view: no keyframe after the first in
+# 40 frames; at 1 m the keyframe policy inserts keyframes and local
+# mapping runs
+STEREO_SWEEP_AMPLITUDE = 1.0
 ATE_GATE_M = 0.02       # the project's ATE gate (BASELINE.md)
 FUSED_GATE_M = 0.02
-KERNEL_SHAPES = [(1032, 1032), (4096, 1032)]   # motion-model / local-map
+# gated-NN shapes: RGB-D motion-model / local-map search (1032 slots),
+# stereo tracking searches and local mapping (2040 slots)
+GATED_SHAPES = [(1032, 1032), (4096, 1032), (2040, 2040), (4096, 2040)]
+HAMMING_SHAPES = [(2040, 2040), (1032, 1032), (37, 1500)]
+# the card's peaks (NVIDIA H100 SXM data sheet, 700 W): HBM bytes/s and
+# dense int8 tensor-core operations/s
+HBM_BYTES_PER_S = 3.35e12
+INT8_OPS_PER_S = 1979e12
 
 
 def _card_line() -> str:
@@ -50,15 +69,38 @@ def _card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def _bound(n_bytes: float, n_ops: float):
+    """(least time in ms, what sets it) for moving n_bytes through HBM and
+    doing n_ops int8 tensor-core operations."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / INT8_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _kernel_libs():
+    from orb_slam2_map_tpu_torch.ops import gated_nn_cuda, hamming_cuda
+
+    return {"gated_nn": gated_nn_cuda, "hamming": hamming_cuda}
+
+
+def _reset_launches():
+    for mod in _kernel_libs().values():
+        mod.LAUNCHES = 0
+
+
+def _read_launches():
+    return {name: mod.LAUNCHES for name, mod in _kernel_libs().items()}
+
+
 def phase_device():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "measures the port on a CUDA card", file=sys.stderr)
         sys.exit(2)
-    from orb_slam2_map_tpu_torch.ops import gated_nn_cuda
+    from orb_slam2_map_tpu_torch.ops import cuda_build
 
     card = _card_line()
-    nvcc = subprocess.run([gated_nn_cuda._nvcc(), "--version"],
+    nvcc = subprocess.run([cuda_build.nvcc(), "--version"],
                           capture_output=True, text=True, timeout=60)
     print(f"[device] {torch.cuda.get_device_name(0)} | nvidia-smi: {card} | "
           f"torch {torch.__version__} cuda {torch.version.cuda} | "
@@ -67,29 +109,38 @@ def phase_device():
 
 
 def phase_build():
-    from orb_slam2_map_tpu_torch.ops import gated_nn_cuda
+    from orb_slam2_map_tpu_torch.ops import cuda_build
 
+    libs = [mod.LIB for mod in _kernel_libs().values()]
     t0 = time.perf_counter()
-    gated_nn_cuda._load()
+    cuda_build.build_all(libs)
     dt = time.perf_counter() - t0
-    ptxas = [ln for ln in gated_nn_cuda.BUILD_LOG.splitlines()
-             if "registers" in ln or "smem" in ln]
-    print(f"[build] {gated_nn_cuda.library_path().name} in {dt:.2f} s "
-          f"(nvcc {gated_nn_cuda.BUILD_SECONDS:.2f} s) "
-          f"{' | '.join(s.strip() for s in ptxas)}")
+    for lib in libs:
+        print(f"[build] {lib.library_path().name}: nvcc "
+              f"{lib.build_seconds:.2f} s | {lib.ptxas_summary()}")
+    print(f"[build] {len(libs)} kernels in {dt:.2f} s (parallel nvcc)")
 
 
-def _kernel_inputs(n, m, seed, device):
-    """Descriptors with top-bit words, duplicated keys and exact-copy
-    queries (ties), and four gate styles stacked by rows: a search
-    window, a random 30 % gate, rows with every pair gated, and all-open
-    rows."""
-    rng = np.random.default_rng(seed)
+def _descriptors(rng, n, m):
+    """Descriptors with top-bit words, duplicated key rows and queries
+    equal to keys (ties and zero distances)."""
     a = rng.integers(0, 2 ** 32, (n, 8), dtype=np.uint32)
     b = rng.integers(0, 2 ** 32, (m, 8), dtype=np.uint32)
     a[::7, 0] = 0xFFFFFFFF
-    b[5::11] = b[3:3 + len(b[5::11])]            # duplicated key rows
-    a[::5] = b[rng.integers(0, m, len(a[::5]))]  # queries equal to keys
+    b[::3, 7] |= np.uint32(0x80000000)
+    if m > 10:
+        b[5::11] = b[3:3 + len(b[5::11])]            # duplicated key rows
+    a[::5] = b[rng.integers(0, m, len(a[::5]))]      # queries equal to keys
+    if n > 4:
+        a[1::4] = a[0]                               # duplicated query rows
+    return a, b
+
+
+def _gated_inputs(n, m, seed, device):
+    """Descriptors plus four gate styles stacked by rows: a search window,
+    a random 30 % gate, rows with every pair gated, and all-open rows."""
+    rng = np.random.default_rng(seed)
+    a, b = _descriptors(rng, n, m)
     q = rng.uniform(0, 640, (n, 2))
     k = rng.uniform(0, 640, (m, 2))
     window = (np.abs(q[:, None] - k[None]) <= 60.0).all(-1)
@@ -102,28 +153,35 @@ def _kernel_inputs(n, m, seed, device):
     return t(a.view(np.int32)), t(b.view(np.int32)), t(gate)
 
 
-def _time_ms(fn, reps=50):
-    for _ in range(5):
+def _time_ms(fn, reps=20, rounds=5):
+    """Device time of one call, in ms: `reps` calls queued behind a device
+    sleep, so that the card runs them back to back whatever the host's
+    launch overhead, timed between two CUDA events; median of `rounds`.
+    (One call between two events on an idle card also times the host's
+    launch of it.)"""
+    for _ in range(3):
         fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(reps):
+    for _ in range(rounds):
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(50_000_000)      # ~25 ms of device spin
         e0.record()
-        fn()
+        for _ in range(reps):
+            fn()
         e1.record()
         e1.synchronize()
-        times.append(e0.elapsed_time(e1))
+        times.append(e0.elapsed_time(e1) / reps)
     return float(np.median(times))
 
 
-def phase_kernel(device, card):
+def phase_gated_nn(device, card):
     from orb_slam2_map_tpu_torch.ops import gated_nn_cuda, matching
 
     rows = []
-    for i, (n, m) in enumerate(KERNEL_SHAPES):
-        a, b, gate = _kernel_inputs(n, m, seed=100 + i, device=device)
+    for i, (n, m) in enumerate(GATED_SHAPES):
+        a, b, gate = _gated_inputs(n, m, seed=100 + i, device=device)
         idx, best, second = gated_nn_cuda.gated_nn(a, b, gate)
         torch.cuda.synchronize()
         ridx, rbest, rsecond = matching.gated_nn_plain(a, b, gate)
@@ -136,38 +194,91 @@ def phase_kernel(device, card):
                        | (second != rsecond)).sum())
             raise AssertionError(f"gated_nn kernel != plain at [{n}x{m}]: "
                                  f"{bad} rows differ, max abs err {err}")
-        # parent/change/change/parent order: plain, kernel, kernel, plain
+        # plain, kernel, kernel, plain
         p1 = _time_ms(lambda: matching.gated_nn_plain(a, b, gate))
         k1 = _time_ms(lambda: gated_nn_cuda.gated_nn(a, b, gate))
         k2 = _time_ms(lambda: gated_nn_cuda.gated_nn(a, b, gate))
         p2 = _time_ms(lambda: matching.gated_nn_plain(a, b, gate))
         ms, plain_ms = min(k1, k2), min(p1, p2)
+        # reads both descriptor sets and the byte gate, writes 12 B a row;
+        # the popcounts it needs are those of the open pairs (2 x 256
+        # operations each as a +-1 int8 product)
+        bound_ms, bound_by = _bound((n + m) * 32 + n * m + n * 12,
+                                    2 * 256 * int(gate.sum()))
         print(f"[kernel] gated_nn [{n}x{m}] exact (max abs err {err}); "
               f"kernel {ms:.4f} ms ({k1:.4f}/{k2:.4f}), plain {plain_ms:.4f} ms "
-              f"({p1:.4f}/{p2:.4f}) | {card}")
-        rows.append(dict(shape=(n, m), err=err, ms=ms, plain_ms=plain_ms))
+              f"({p1:.4f}/{p2:.4f}), bound {bound_ms:.5f} ms ({bound_by}), "
+              f"no single PyTorch call | {card}")
+        rows.append(dict(shape=(n, m), err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by=bound_by))
     return rows
 
 
-def _sequence(device, n_frames):
-    from orb_slam2_map_tpu_torch.io.synthetic import (
-        SyntheticRGBDSequence, SyntheticWorld, synthetic_camera,
-        sweep_trajectory)
+def phase_hamming(device, card):
+    from orb_slam2_map_tpu_torch.ops import hamming_cuda, matching
 
-    cam = synthetic_camera()
-    world = SyntheticWorld(cam=cam, seed=0, device=device)
-    Twc, ts = sweep_trajectory(n_frames)
-    return cam, SyntheticRGBDSequence(world, Twc, ts, noise=True)
+    rows = []
+    for i, (n, m) in enumerate(HAMMING_SHAPES):
+        rng = np.random.default_rng(200 + i)
+        a_np, b_np = _descriptors(rng, n, m)
+        a = torch.as_tensor(a_np.view(np.int32), device=device)
+        b = torch.as_tensor(b_np.view(np.int32), device=device)
+        d = hamming_cuda.hamming_matrix(a, b)
+        torch.cuda.synchronize()
+        ref = matching.hamming_matrix_plain(a, b)
+        err = float((d - ref).abs().max())
+        if not torch.equal(d, ref):
+            raise AssertionError(f"hamming kernel != plain at [{n}x{m}]: "
+                                 f"{int((d != ref).sum())} entries differ, "
+                                 f"max abs err {err}")
+        # the stereo matcher's masked_nn takes the lowest column on ties
+        # (jnp.argmin): hold torch.min to that on the card
+        res = matching.masked_nn(d, ref < 120.0, max_dist=100.0)
+        dg = torch.where(ref < 120.0, ref, matching.INF)
+        col = torch.arange(m, device=device)
+        first = torch.where(dg == dg.amin(1, keepdim=True), col, m).amin(1)
+        if not torch.equal(res.idx, first):
+            raise AssertionError(f"masked_nn is not first-index on ties at "
+                                 f"[{n}x{m}]")
+        # the single PyTorch call computing the same matrix, on operands
+        # unpacked to +-1 float32 beforehand (unpack not timed)
+        A, B = matching.unpack_pm1(a), matching.unpack_pm1(b)
+        half = torch.full((), 128.0, device=device)
+        lib = torch.addmm(half, A, B.T, alpha=-0.5)
+        if not torch.equal(lib, ref):
+            raise AssertionError(f"addmm yardstick != plain at [{n}x{m}]")
+        p1 = _time_ms(lambda: matching.hamming_matrix_plain(a, b))
+        k1 = _time_ms(lambda: hamming_cuda.hamming_matrix(a, b))
+        k2 = _time_ms(lambda: hamming_cuda.hamming_matrix(a, b))
+        p2 = _time_ms(lambda: matching.hamming_matrix_plain(a, b))
+        lib_ms = _time_ms(lambda: torch.addmm(half, A, B.T, alpha=-0.5))
+        ms, plain_ms = min(k1, k2), min(p1, p2)
+        bound_ms, bound_by = _bound((n + m) * 32 + n * m * 4, 2 * 256 * n * m)
+        print(f"[kernel] hamming [{n}x{m}] exact (max abs err {err}), "
+              f"masked_nn first-index on ties; kernel {ms:.4f} ms "
+              f"({k1:.4f}/{k2:.4f}), plain {plain_ms:.4f} ms ({p1:.4f}/"
+              f"{p2:.4f}), addmm {lib_ms:.4f} ms, bound {bound_ms:.5f} ms "
+              f"({bound_by}) | {card}")
+        rows.append(dict(shape=(n, m), err=err, ms=ms, plain_ms=plain_ms,
+                         library_ms=lib_ms, bound_ms=bound_ms,
+                         bound_by=bound_by))
+    return rows
 
 
 def phase_slice(device, card, n_frames=N_FRAMES):
     from orb_slam2_map_tpu_torch.config import SystemConfig
     from orb_slam2_map_tpu_torch.io.evaluate import ate_rmse
+    from orb_slam2_map_tpu_torch.io.synthetic import (
+        SyntheticRGBDSequence, SyntheticWorld, synthetic_camera,
+        sweep_trajectory)
     from orb_slam2_map_tpu_torch.ops import gated_nn_cuda, orb
     from orb_slam2_map_tpu_torch.slam.mapstore import MapStore
     from orb_slam2_map_tpu_torch.slam.tracking import Tracker
 
-    cam, seq = _sequence(device, n_frames)
+    cam = synthetic_camera()
+    world = SyntheticWorld(cam=cam, seed=0, device=device)
+    Twc, ts = sweep_trajectory(n_frames)
+    seq = SyntheticRGBDSequence(world, Twc, ts, noise=True)
     cfg = SystemConfig(camera=cam)
     assert orb.total_capacity(cfg.orb) == 1032, orb.total_capacity(cfg.orb)
     tracker = Tracker(cfg, MapStore(max_keyframes=512, max_points=1 << 16,
@@ -176,17 +287,17 @@ def phase_slice(device, card, n_frames=N_FRAMES):
     frames = [seq[i] for i in range(n_frames)]
     torch.cuda.synchronize()
 
-    gated_nn_cuda.LAUNCHES = 0
+    _reset_launches()
     per_frame, wall, lost = [], [], 0
-    for ts, gray, depth, _ in frames:
+    for ts_i, gray, depth, _ in frames:
         before = gated_nn_cuda.LAUNCHES
         t0 = time.perf_counter()
-        pose = tracker.track_rgbd(ts, gray, depth)
+        pose = tracker.track_rgbd(ts_i, gray, depth)
         torch.cuda.synchronize()
         wall.append(time.perf_counter() - t0)
         per_frame.append(gated_nn_cuda.LAUNCHES - before)
         lost += pose is None
-    launches = gated_nn_cuda.LAUNCHES
+    launches = _read_launches()
 
     ts_raw, T_raw = tracker.trajectory(refine=False)
     ts_ref, T_ref = tracker.trajectory(refine=True)
@@ -198,9 +309,8 @@ def phase_slice(device, card, n_frames=N_FRAMES):
           f"{tracker.map.n_keyframes()}, points {tracker.map.n_points()}, "
           f"ATE raw {ate_raw * 100:.3f} cm, refined {ate_ref * 100:.3f} cm, "
           f"median frame {med_ms:.2f} ms (mean {np.mean(wall[1:]) * 1e3:.2f}, "
-          f"first {wall[0] * 1e3:.1f}), gated_nn launches {launches} "
-          f"(min per steady-state frame {min(per_frame[2:])}) | {card}")
-    torch.cuda.synchronize()
+          f"first {wall[0] * 1e3:.1f}), launches {launches} (gated_nn min "
+          f"per steady-state frame {min(per_frame[2:])}) | {card}")
     if lost:
         raise AssertionError(f"{lost} lost frames")
     if not ate_raw <= ATE_GATE_M:
@@ -271,19 +381,138 @@ def phase_fused(device, card, tracker, seq, raw_traj):
         raise AssertionError(f"fused_frame_step centre error {max(errs)} m")
 
 
+def _stereo_frames(device, cam, n_frames):
+    """A rectified stereo sweep rendered on the card: the left eye on
+    sweep_trajectory, the right eye at Twc . [b, 0, 0], b = bf / fx."""
+    from orb_slam2_map_tpu_torch.io.synthetic import (SyntheticWorld,
+                                                      sweep_trajectory)
+
+    world = SyntheticWorld(cam=cam, seed=0, device=device)
+    Twc, ts = sweep_trajectory(n_frames, amplitude=STEREO_SWEEP_AMPLITUDE,
+                               fps=cam.fps)
+    b = cam.bf / cam.fx
+    frames = []
+    for T in Twc:
+        Tr = T.copy()
+        Tr[:3, 3] += T[:3, :3] @ np.asarray([b, 0.0, 0.0])
+        for eye in (T[:3, 3], Tr[:3, 3]):
+            if not ((eye > 0.05).all() and (eye < world.size - 0.05).all()):
+                raise AssertionError(f"stereo eye {eye} outside the room")
+        frames.append((world.render_tensors(T)[0],
+                       world.render_tensors(Tr)[0]))
+    return Twc, ts, frames
+
+
+def phase_stereo(device, card, n_frames=N_STEREO):
+    from orb_slam2_map_tpu_torch.config import ORBConfig, SystemConfig
+    from orb_slam2_map_tpu_torch.io.evaluate import ate_rmse
+    from orb_slam2_map_tpu_torch.io.kitti import kitti_camera
+    from orb_slam2_map_tpu_torch.ops import gated_nn_cuda, hamming_cuda, orb
+    from orb_slam2_map_tpu_torch.slam.system import SLAMSystem, Sensor
+    from orb_slam2_map_tpu_torch.utils import profiling
+
+    cam = kitti_camera(0)
+    # KITTI settings: 2000 features (Examples/Stereo/KITTI00-02.yaml)
+    cfg = SystemConfig(camera=cam,
+                       orb=ORBConfig(n_features=2000, max_keypoints=2048))
+    assert orb.total_capacity(cfg.orb) == 2040, orb.total_capacity(cfg.orb)
+    slam = SLAMSystem(cfg, Sensor.STEREO, enable_loop_closing=False,
+                      max_keyframes=512, max_points=1 << 16, device=device)
+    Twc, ts, frames = _stereo_frames(device, cam, n_frames)
+    torch.cuda.synchronize()
+
+    # gated-NN launches made by local mapping
+    mapper = slam.local_mapper
+    process = mapper.process_keyframe
+    mapping_launches = [0]
+
+    def counted(kid, *args, **kwargs):
+        before = gated_nn_cuda.LAUNCHES
+        process(kid, *args, **kwargs)
+        mapping_launches[0] += gated_nn_cuda.LAUNCHES - before
+
+    mapper.process_keyframe = counted
+    profiling.PROFILER.reset()
+    profiling.PROFILER.sync = torch.cuda.synchronize
+    _reset_launches()
+    wall, per_frame_hamming, lost = [], [], 0
+    try:
+        for ts_i, (gl, gr) in zip(ts, frames):
+            before = hamming_cuda.LAUNCHES
+            t0 = time.perf_counter()
+            pose = slam.track_stereo(float(ts_i), gl, gr)
+            torch.cuda.synchronize()
+            wall.append(time.perf_counter() - t0)
+            per_frame_hamming.append(hamming_cuda.LAUNCHES - before)
+            lost += pose is None
+    finally:
+        profiling.PROFILER.sync = None
+    launches = _read_launches()
+
+    ts_raw, T_raw = slam.tracker.trajectory(refine=False)
+    ate_raw = ate_rmse(ts_raw, T_raw[:, :3, 3], ts, Twc[:, :3, 3])
+    finite = np.isfinite(T_raw).all() and T_raw.shape == (n_frames, 4, 4)
+    print(f"[stereo] {n_frames} frames {cam.width}x{cam.height} (KITTI 00-02 "
+          f"camera, 2040 slots), lost {lost}, keyframes "
+          f"{slam.map.n_keyframes()}, points {slam.map.n_points()}, ATE raw "
+          f"{ate_raw * 100:.3f} cm, median frame "
+          f"{np.median(wall[1:]) * 1e3:.2f} ms (mean "
+          f"{np.mean(wall[1:]) * 1e3:.2f}, first {wall[0] * 1e3:.1f}; stage "
+          f"boundaries synchronised), launches {launches} (hamming min per "
+          f"frame {min(per_frame_hamming)}, gated_nn in local mapping "
+          f"{mapping_launches[0]}) | {card}")
+    print("[stereo] profile_report():\n" + slam.profile_report())
+    if lost:
+        raise AssertionError(f"{lost} lost stereo frames")
+    if not (finite and ate_raw <= ATE_GATE_M):
+        raise AssertionError(f"stereo raw ATE {ate_raw} m above "
+                             f"{ATE_GATE_M} m (finite: {finite})")
+    if min(per_frame_hamming) < 1:
+        raise AssertionError(f"a stereo frame ran no hamming kernel: "
+                             f"{per_frame_hamming}")
+    if mapping_launches[0] < 1:
+        raise AssertionError("local mapping launched no gated_nn kernel")
+    return launches
+
+
 def main():
     device, card = phase_device()
     phase_build()
-    kernel_rows = phase_kernel(device, card)
-    tracker, seq, launches, raw_traj = phase_slice(device, card)
+    gated_rows = phase_gated_nn(device, card)
+    hamming_rows = phase_hamming(device, card)
+    tracker, seq, rgbd_launches, raw_traj = phase_slice(device, card)
+    if rgbd_launches["gated_nn"] < 1:
+        raise AssertionError("the RGB-D path launched no gated_nn kernel")
     phase_fused(device, card, tracker, seq, raw_traj)
-    big = kernel_rows[-1]
-    print(json.dumps({"kernels": [{
-        "name": "gated_nn", "route": "cuda",
-        "source": "orb_slam2_map_tpu_torch/csrc/gated_nn.cu",
-        "replaces": "orb_slam2_map_tpu/ops/pallas_kernels.py:125",
-        "launches": launches, "max_abs_err": max(r["err"] for r in kernel_rows),
-        "ms": big["ms"], "plain_ms": big["plain_ms"]}]}))
+    stereo_launches = phase_stereo(device, card)
+    for name, n in stereo_launches.items():
+        if n < 1:
+            raise AssertionError(f"the stereo path launched no {name} kernel")
+
+    g = next(r for r in gated_rows if r["shape"] == (4096, 2040))
+    h = next(r for r in hamming_rows if r["shape"] == (2040, 2040))
+    print(json.dumps({"kernels": [
+        {"name": "gated_nn", "route": "cuda",
+         "source": "orb_slam2_map_tpu_torch/csrc/gated_nn.cu",
+         "replaces": "orb_slam2_map_tpu/ops/pallas_kernels.py:125",
+         "launches": stereo_launches["gated_nn"],
+         "launches_by_path": {"rgbd": rgbd_launches["gated_nn"],
+                              "stereo": stereo_launches["gated_nn"]},
+         "shape": list(g["shape"]),
+         "max_abs_err": max(r["err"] for r in gated_rows),
+         "ms": g["ms"], "plain_ms": g["plain_ms"], "bound_ms": g["bound_ms"],
+         "bound_by": g["bound_by"], "library_ms": None},
+        {"name": "hamming", "route": "cuda",
+         "source": "orb_slam2_map_tpu_torch/csrc/hamming.cu",
+         "replaces": "orb_slam2_map_tpu/ops/pallas_kernels.py:51",
+         "launches": stereo_launches["hamming"],
+         "launches_by_path": {"rgbd": rgbd_launches["hamming"],
+                              "stereo": stereo_launches["hamming"]},
+         "shape": list(h["shape"]),
+         "max_abs_err": max(r["err"] for r in hamming_rows),
+         "ms": h["ms"], "plain_ms": h["plain_ms"], "bound_ms": h["bound_ms"],
+         "bound_by": h["bound_by"], "library_ms": h["library_ms"]},
+    ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,13 +3,15 @@
 A port of `orb_slam2_map_tpu` (JAX/XLA/Pallas) that keeps its layout and
 names module for module (`geom/`, `ops/`, `optim/`, `slam/`, `io/`), so
 each function's counterpart is easy to find. Plain tensor code is
-PyTorch; the Pallas kernels on the ported path are hand-written CUDA
-C++ for sm_90a under `csrc/`, built on first use (ops/gated_nn_cuda.py).
+PyTorch; both Pallas kernels of the JAX package are hand-written CUDA
+C++ for sm_90a under `csrc/`, built on first use (ops/cuda_build.py).
 
 This package imports torch and numpy only: never jax, never the JAX
-package. The RGB-D tracking slice (`slam.tracking.Tracker`) is ported;
-local mapping, loop closing, relocalization, stereo/mono and dense
-mapping are later slices (ROADMAP.md).
+package. Ported: the RGB-D tracking slice (`slam.tracking.Tracker`) and
+the stereo system with local mapping (`slam.system.SLAMSystem`, without
+loop closing). Relocalization, loop closing, monocular, dense mapping
+and the async pipeline are later slices (ROADMAP.md). Entry points run
+on the CUDA card unless given `device="cpu"`.
 """
 
 __version__ = "0.1.0"

@@ -1,3 +1,3 @@
-from . import evaluate, synthetic
+from . import evaluate, kitti, synthetic, trajectory
 
-__all__ = ["evaluate", "synthetic"]
+__all__ = ["evaluate", "kitti", "synthetic", "trajectory"]

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from ..geom.camera import PinholeCamera
+from ..utils.device import default_device
 
 
 def synthetic_camera(width: int = 640, height: int = 480) -> PinholeCamera:
@@ -46,7 +47,8 @@ class SyntheticWorld:
     render(Twc) -> (gray f32 [H,W] in [0,255], depth f32 [H,W] meters,
     rgb u8 [H,W,3]) as numpy arrays; render_tensors keeps them on the
     device. `textures` = (coarse, fine, blob) arrays replaces the seeded
-    draw (e.g. to render with another world's textures)."""
+    draw (e.g. to render with another world's textures). The world lives
+    on `device`, by default the card."""
 
     def __init__(self, cam: Optional[PinholeCamera] = None,
                  size=(6.0, 3.0, 6.0), seed: int = 0,
@@ -55,8 +57,7 @@ class SyntheticWorld:
                  textures=None, device=None):
         self.cam = cam or synthetic_camera()
         self.size = np.asarray(size, dtype=np.float32)
-        self.device = torch.device(device) if device is not None \
-            else torch.device("cpu")
+        self.device = default_device(device)
         if textures is None:
             textures = make_textures(seed)
         self.coarse_tex, self.fine_tex, self.blob_tex = (

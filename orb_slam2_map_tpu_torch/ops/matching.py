@@ -6,9 +6,11 @@ Hamming distance, a candidate gate (search window, scale band, stereo
 column, epipolar distance), and gated nearest-neighbour selection with
 the ratio test, duplicate resolution and the rotation-histogram filter.
 
-`gated_nn` is the kernel entry: on CUDA tensors it launches the
-hand-written Hopper kernel (ops/gated_nn_cuda.py, csrc/gated_nn.cu); on
-CPU tensors it runs the plain version `gated_nn_plain` beside it.
+`hamming_matrix` and `gated_nn` are the kernel entries: on CUDA tensors
+they launch the hand-written Hopper kernels (ops/hamming_cuda.py,
+csrc/hamming.cu; ops/gated_nn_cuda.py, csrc/gated_nn.cu); on CPU tensors
+they run the plain versions beside them, `hamming_matrix_plain` and
+`gated_nn_plain`.
 
 Descriptors are [N, 8] int32 bit-views of the packed uint32 words.
 """
@@ -31,11 +33,25 @@ def unpack_pm1(desc: torch.Tensor) -> torch.Tensor:
     return unpack_bits(desc).to(torch.float32) * 2.0 - 1.0
 
 
-def hamming_matrix(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Tensor:
-    """All-pairs Hamming distance [N, M] float32: dist = (256 - a.b) / 2
-    with a, b in {-1,+1}^256. Exact in float32 (integers <= 256)."""
+def hamming_matrix_plain(desc_a: torch.Tensor,
+                         desc_b: torch.Tensor) -> torch.Tensor:
+    """Plain version of the Hamming-matrix kernel: all-pairs distance
+    [N, M] float32 = (256 - a.b) / 2 with a, b in {-1,+1}^256. Exact in
+    float32 (integers <= 256)."""
     dot = unpack_pm1(desc_a) @ unpack_pm1(desc_b).T
     return (256.0 - dot) * 0.5
+
+
+def hamming_matrix(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Tensor:
+    """All-pairs Hamming distance [N, M] float32 from packed [*, 8]
+    descriptors. CUDA tensors go through the hand kernel, CPU tensors
+    the plain version."""
+    if desc_a.is_cuda:
+        from . import hamming_cuda
+
+        return hamming_cuda.hamming_matrix(desc_a.contiguous(),
+                                           desc_b.contiguous())
+    return hamming_matrix_plain(desc_a, desc_b)
 
 
 def hamming_distance(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Tensor:
@@ -57,7 +73,7 @@ def gated_nn_plain(desc_a: torch.Tensor, desc_b: torch.Tensor,
     Hamming distance's (idx, best, second). Gated pairs count 1e9; idx is
     the lowest column reaching best (0 when best >= 1e9); second is the
     min over every other column, capped at 1e9."""
-    d = torch.where(gate, hamming_matrix(desc_a, desc_b), INF)
+    d = torch.where(gate, hamming_matrix_plain(desc_a, desc_b), INF)
     if d.shape[1] == 0:
         full = torch.full((d.shape[0],), INF, device=d.device)
         return torch.zeros(d.shape[0], dtype=torch.int32, device=d.device), \

@@ -23,6 +23,8 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils.device import default_device
+
 COVIS_EDGE_MIN = 15  # keep covisibility edge if weight >= 15 (ref :368-390)
 
 
@@ -554,9 +556,9 @@ class MapStore:
         The update is in place: safe on the synchronous tracking path,
         which holds no snapshot of the columns across frames (every
         frame's launches are complete once its packed result has been
-        copied to the host, before the next call here)."""
-        device = torch.device(device) if device is not None else \
-            torch.device("cpu")
+        copied to the host, before the next call here). `device`
+        defaults to the card."""
+        device = default_device(device)
         if (self._dev is not None and self._dev_device == device
                 and self._dev_version == self.version):
             return self._dev

@@ -28,6 +28,7 @@ import torch
 
 from ..config import SystemConfig
 from ..optim import pose_opt
+from ..utils.device import default_device
 from . import frame as frame_mod
 from . import pipeline_step
 from . import search
@@ -94,19 +95,16 @@ def _se3_interp(Ta: np.ndarray, Tb: np.ndarray, w: float) -> np.ndarray:
     return T
 
 
-def _default_device():
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
-
-
 class Tracker:
     def __init__(self, cfg: SystemConfig, map_store: MapStore,
-                 local_mapper=None, dense_mapper=None, device=None):
+                 local_mapper=None, dense_mapper=None, relocalizer=None,
+                 device=None):
         self.cfg = cfg
         self.map = map_store
-        self.device = torch.device(device) if device is not None \
-            else _default_device()
+        self.device = default_device(device)
         self.local_mapper = local_mapper
         self.dense_mapper = dense_mapper
+        self.relocalizer = relocalizer  # place-recognition hook (unported)
         self.state = TrackingState.NO_IMAGES_YET
         self.only_tracking = False      # localization mode (no mapping)
         self.vo_only = False            # mbVO: tracking on temporal VO
@@ -155,7 +153,9 @@ class Tracker:
 
     def track_frame(self, timestamp: float, f: Frame,
                     rgb=None, depth_img=None) -> Optional[np.ndarray]:
-        """Track a pre-built frame."""
+        """Track a pre-built frame (the stereo path builds its frames in
+        ops/stereo.py): the motion-model, reference-keyframe and local-map
+        stages run one by one instead of as the RGB-D launch chain."""
         self.frame_id += 1
         return self._track(timestamp, f, rgb=rgb, depth_img=depth_img)
 

@@ -5,6 +5,11 @@ mains (reference: Examples/RGB-D/rgbd_tum.cc:91-133: per-frame
 steady_clock around TrackRGBD, sorted median/mean at exit) and vocabulary
 load timing (src/System.cc:75,95). Here every pipeline stage reports into
 a process-wide registry. Device-side traces come from torch.profiler.
+
+Launches are asynchronous, so a host clock around a stage measures when
+its work was queued. Set `PROFILER.sync` to `torch.cuda.synchronize` to
+wait for the device at every stage boundary: the stage times then hold
+the device work, at the cost of one synchronisation per boundary.
 """
 
 from __future__ import annotations
@@ -13,7 +18,7 @@ import contextlib
 import json
 import threading
 import time
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
@@ -48,6 +53,7 @@ class Profiler:
 
     def __init__(self, enabled: bool = True):
         self.enabled = enabled
+        self.sync: Optional[Callable[[], None]] = None
         self._stages: Dict[str, StageStats] = {}
         self._lock = threading.Lock()
 
@@ -56,10 +62,14 @@ class Profiler:
         if not self.enabled:
             yield
             return
+        if self.sync is not None:
+            self.sync()
         t0 = time.perf_counter()
         try:
             yield
         finally:
+            if self.sync is not None:
+                self.sync()
             dt = time.perf_counter() - t0
             with self._lock:
                 self._stages.setdefault(name, StageStats()).add(dt)

@@ -1,9 +1,10 @@
-"""The hand-written gated-NN CUDA kernel against its plain PyTorch
-version (ops/matching.py:gated_nn_plain), and the wrapper's checks.
+"""The hand-written CUDA kernels against their plain PyTorch versions
+(ops/matching.py: gated_nn_plain, hamming_matrix_plain), and the
+wrappers' checks.
 
 This file imports torch, numpy and the port only, so it also runs on a
-machine without JAX. The kernel has no CPU mode: its test is marked
-`cuda` and skips without a card. On the card:
+machine without JAX. The kernels have no CPU mode: their tests are marked
+`cuda` and skip without a card. On the card:
 
     python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_kernels.py
 
@@ -14,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from orb_slam2_map_tpu_torch.ops import gated_nn_cuda
+from orb_slam2_map_tpu_torch.ops import gated_nn_cuda, hamming_cuda
 from orb_slam2_map_tpu_torch.ops import matching as tm
 
 torch.set_num_threads(1)
@@ -59,7 +60,7 @@ def _gate(kind, rng, n, m):
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the gated-NN kernel has no CPU mode")
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
     return torch.device("cuda")
 
 
@@ -68,6 +69,15 @@ def test_wrapper_refuses_cpu_tensors():
     a, b = _descs(rng, 8, 8)
     with pytest.raises(ValueError):
         gated_nn_cuda.gated_nn(_t(a), _t(b), torch.ones(8, 8, dtype=torch.bool))
+
+
+def test_hamming_wrapper_refuses_cpu_tensors():
+    rng = np.random.default_rng(1)
+    a, b = _descs(rng, 8, 8)
+    before = hamming_cuda.LAUNCHES
+    with pytest.raises(ValueError, match="CUDA"):
+        hamming_cuda.hamming_matrix(_t(a), _t(b))
+    assert hamming_cuda.LAUNCHES == before
 
 
 def test_plain_version_semantics():
@@ -102,3 +112,22 @@ def test_gated_nn_kernel_on_card(cuda_device, kind):
         assert gated_nn_cuda.LAUNCHES == before + 1
         for g, w in zip(got, tm.gated_nn_plain(a, b, gate)):
             assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2040, 2040), (424, 424), (37, 1500),
+                                   (5, 1), (0, 8)])
+def test_hamming_kernel_on_card(cuda_device, shape):
+    n, m = shape
+    rng = np.random.default_rng(n + m)
+    a, b = _descs(rng, max(n, 2), max(m, 2))
+    a = _t(a[:n]).to(cuda_device)
+    b = _t(b[:m]).to(cuda_device)
+    before = hamming_cuda.LAUNCHES
+    got = hamming_cuda.hamming_matrix(a, b)
+    torch.cuda.synchronize()
+    assert hamming_cuda.LAUNCHES == before + (1 if n and m else 0)
+    assert got.shape == (n, m) and got.dtype == torch.float32
+    assert torch.equal(got, tm.hamming_matrix_plain(a, b))
+    # the entry point launches the kernel on CUDA tensors
+    assert torch.equal(tm.hamming_matrix(a, b), got)

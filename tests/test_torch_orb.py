@@ -138,7 +138,7 @@ def test_extract_and_rgbd_frame(scene):
                                rtol=0, atol=1e-4)
 
     f_j = jframe.build_rgbd_frame(cfg, gray, depth)
-    f_t = tframe.build_rgbd_frame(tcfg, gray, depth)
+    f_t = tframe.build_rgbd_frame(tcfg, gray, depth, device="cpu")
     for name in ("level", "valid", "depth", "inv_sigma2"):
         np.testing.assert_array_equal(getattr(f_t, name).numpy(),
                                       np.asarray(getattr(f_j, name)))

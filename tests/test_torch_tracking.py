@@ -253,7 +253,8 @@ def test_renderer_parity(sweep):
     cfg, world, Twc, _, frames = sweep
     textures = (np.asarray(world.coarse_tex), np.asarray(world.fine_tex),
                 np.asarray(world.blob_tex))
-    tw = tsyn.SyntheticWorld(cam=TCam(*cfg.camera), textures=textures)
+    tw = tsyn.SyntheticWorld(cam=TCam(*cfg.camera), textures=textures,
+                             device="cpu")
     for i in (0, 17):
         g_j, d_j, rgb_j = frames[i]
         g_t, d_t, rgb_t = tw.render(Twc[i])
