@@ -1,6 +1,8 @@
 """Where the device time goes: torch.profiler over steady-state frames of
-the smoke's two cells, on one NVIDIA GPU; and the card's POPC issue
-rate, which bounds the Hamming kernel (csrc/popc_rate.cu).
+the smoke's two cells, on one NVIDIA GPU; the card's POPC issue rate
+(csrc/popc_rate.cu), which bounded the CUDA-core Hamming kernels, and
+its mma.sync m16n8k32 s8 rate (csrc/mma_rate.cu), which bounds the
+tensor-core ones.
 
     python3 chip_profile.py
 
@@ -123,7 +125,7 @@ def _report(name, prof, n_frames, wall_s, card):
     # the hand kernels launch through ctypes, outside the ranges' view:
     # found by name
     ours = [(k, v) for k, v in by_kernel.items()
-            if "gated_nn_kernel" in k or "hamming_kernel" in k]
+            if "gated_nn" in k or "hamming_kernel" in k]
     for kname, (n, us) in top + ours:
         print(f"[profile] {name}   kernel {kname:<70} n/frame "
               f"{n * per:7.1f} ms/frame {us * 1e-3 * per:.3f}")
@@ -204,20 +206,21 @@ def _smi(field: str) -> float:
     return float(out.stdout.strip().splitlines()[0])
 
 
-def popc_rate(device, card, iters=4096):
-    """POPC results per clock per SM: 8 independent chains per thread,
-    8 resident blocks per SM, timed between CUDA events."""
+def _rate_probe(device, name, iters, blocks_per_sm=8):
+    """Build csrc/<name>.cu and time its <name>_launch over
+    blocks_per_sm x SMs blocks of 256 threads between CUDA events.
+    Returns (seconds per launch, blocks, SMs, the library)."""
     import ctypes
 
     from orb_slam2_map_tpu_torch.ops import cuda_build
 
     lib = cuda_build.KernelLibrary(
-        "popc_rate", "popc_rate_launch",
+        name, f"{name}_launch",
         [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
          ctypes.c_void_p])
     launch = lib.fn()
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    blocks = 8 * sms
+    blocks = blocks_per_sm * sms
     words = torch.randint(0, 2 ** 31, (1024,), dtype=torch.int32,
                           device=device)
     out = torch.empty(blocks * 256, dtype=torch.int32, device=device)
@@ -225,7 +228,7 @@ def popc_rate(device, card, iters=4096):
 
     def run():
         if launch(words.data_ptr(), out.data_ptr(), blocks, iters, stream):
-            raise RuntimeError("popc_rate launch failed")
+            raise RuntimeError(f"{name} launch failed")
 
     run()
     torch.cuda.synchronize()
@@ -236,7 +239,13 @@ def popc_rate(device, card, iters=4096):
         run()
     e1.record()
     e1.synchronize()
-    seconds = e0.elapsed_time(e1) * 1e-3 / 10
+    return e0.elapsed_time(e1) * 1e-3 / 10, blocks, sms, lib
+
+
+def popc_rate(device, card, iters=4096):
+    """POPC results per clock per SM: 8 independent chains per thread,
+    8 resident blocks per SM (csrc/popc_rate.cu)."""
+    seconds, blocks, sms, lib = _rate_probe(device, "popc_rate", iters)
     clock_now = _smi("clocks.sm")
     clock_max = _smi("clocks.max.sm")
     n = blocks * 256 * iters * 8
@@ -248,10 +257,41 @@ def popc_rate(device, card, iters=4096):
           f"{card}")
 
 
+def mma_count(n, m):
+    """mma.sync m16n8k32 instructions for all [n, m] descriptor pairs:
+    8 k-steps per m16 x n8 tile."""
+    return -(-n // 16) * -(-m // 8) * 8
+
+
+def mma_rate(device, card, iters=4096):
+    """mma.sync m16n8k32 s8 instructions per clock per SM and int8 TOP/s:
+    8 independent accumulator chains per warp, 8 warps per block, 8
+    resident blocks per SM (csrc/mma_rate.cu); and the tensor-core floor
+    this rate puts under the two Hamming kernels at their path shapes."""
+    seconds, blocks, sms, lib = _rate_probe(device, "mma_rate", iters)
+    clock_now = _smi("clocks.sm")
+    clock_max = _smi("clocks.max.sm")
+    n = blocks * 8 * iters * 8
+    rate = n / seconds
+    floors = ", ".join(
+        f"{kind} [{a}x{b}] {mma_count(a, b) / rate * 1e6:.3f} us"
+        for kind, shapes in (("gated_nn", chip_smoke.GATED_SHAPES),
+                             ("hamming", chip_smoke.HAMMING_SHAPES[:1]))
+        for a, b in shapes)
+    print(f"[mma] {n:.3e} mma.sync m16n8k32 s8 in {seconds * 1e3:.4f} ms on "
+          f"{sms} SMs: {rate / sms / (clock_max * 1e6):.3f} per clock per SM "
+          f"at the {clock_max:.0f} MHz maximum SM clock "
+          f"({rate / sms / (clock_now * 1e6):.3f} at the {clock_now:.0f} MHz "
+          f"read right after), {rate * 8192 / 1e12:.1f} int8 TOP/s; floors at "
+          f"this rate (every tile computed): {floors} | {lib.ptxas_summary()} "
+          f"| {card}")
+
+
 def main():
     device, card = chip_smoke.phase_device()
     chip_smoke.phase_build()
     popc_rate(device, card)
+    mma_rate(device, card)
     _annotate(RGBD_STAGES + [s for s in STEREO_STAGES
                              if s not in RGBD_STAGES])
     profile_rgbd(device, card)

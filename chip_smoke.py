@@ -7,18 +7,23 @@ script exits non-zero without the final line:
 
 1. device: card name, power limit, torch / CUDA / nvcc versions;
 2. build: compiles every kernel under orb_slam2_map_tpu_torch/csrc/ with
-   nvcc, one process per source, all started together (ptxas -v lines);
+   nvcc, one process per source, all started together (ptxas -v lines),
+   and requires tensor-core instructions (IMMA) in each library's SASS;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the shapes its paths give it, exact equality required; CUDA-event
-   timings of the kernel, the plain version and (where one exists) the
-   single PyTorch call computing the same function, beside the bound;
+   the shapes its paths give it and at ragged shapes, exact equality
+   required; CUDA-event timings of the kernel, the plain version and
+   (where one exists) the single PyTorch call computing the same
+   function (and, for the Hamming matrix, torch._int_mm on +-1 int8
+   operands as a second yardstick), beside the bound;
 4. slice: the port's Tracker over a 120-frame 640x480 RGB-D sweep with
-   sensor noise (TUM1 ORB settings), 0 lost frames and raw ATE <= 2 cm;
+   sensor noise (TUM1 ORB settings), 0 lost frames and raw ATE <= 2 cm,
+   and the share of open gate pairs over its gated_nn launches;
 5. fused: `fused_frame_step` over the next 10 frames of the sweep;
 6. stereo: SLAMSystem(Sensor.STEREO, local mapping, no loop closing) at
    KITTI 00-02 width (1241x376, 2000 features, 2040 keypoint slots) over
    a 60-frame stereo sweep, 0 lost frames and raw ATE <= 2 cm, with the
-   per-stage times of its profile;
+   per-stage times of its profile and the open-gate share in tracking
+   and in local mapping;
 7. the kernels' JSON line, the card line, then the result line.
 
 Each kernel counts its launches; the counts are set to 0 right before a
@@ -54,6 +59,12 @@ FUSED_GATE_M = 0.02
 # stereo tracking searches and local mapping (2040 slots)
 GATED_SHAPES = [(1032, 1032), (4096, 1032), (2040, 2040), (4096, 2040)]
 HAMMING_SHAPES = [(2040, 2040), (1032, 1032), (37, 1500)]
+# exactness only: shapes off every tile multiple (16, 8, 32, 64), key
+# ranges split across the blocks of a cluster ([17 x 2041], [33 x 2041]),
+# no keys at all
+RAGGED_GATED_SHAPES = [(1, 1), (15, 7), (17, 9), (1031, 1033), (17, 2041),
+                       (33, 2041), (5, 0)]
+RAGGED_HAMMING_SHAPES = [(1, 1), (15, 7), (17, 9), (1031, 1033), (17, 2041)]
 # the card's peaks (NVIDIA H100 SXM data sheet, 700 W): HBM bytes/s and
 # dense int8 tensor-core operations/s
 HBM_BYTES_PER_S = 3.35e12
@@ -108,6 +119,20 @@ def phase_device():
     return torch.device("cuda", 0), card
 
 
+def _sass_count(path, opcode: str) -> int:
+    """Instructions of `opcode` in the SASS of a built library
+    (cuobjdump -sass)."""
+    from orb_slam2_map_tpu_torch.ops import cuda_build
+
+    tool = os.path.join(os.path.dirname(cuda_build.nvcc()), "cuobjdump")
+    out = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                         text=True, timeout=120)
+    if out.returncode != 0:
+        raise RuntimeError(f"cuobjdump failed on {path}: {out.stderr.strip()}")
+    return sum(1 for ln in out.stdout.splitlines()
+               if f" {opcode}" in ln or f"{{{opcode}" in ln)
+
+
 def phase_build():
     from orb_slam2_map_tpu_torch.ops import cuda_build
 
@@ -116,8 +141,14 @@ def phase_build():
     cuda_build.build_all(libs)
     dt = time.perf_counter() - t0
     for lib in libs:
+        # the Hamming product runs on the tensor cores: IMMA in the SASS
+        imma = _sass_count(lib.library_path(), "IMMA")
         print(f"[build] {lib.library_path().name}: nvcc "
-              f"{lib.build_seconds:.2f} s | {lib.ptxas_summary()}")
+              f"{lib.build_seconds:.2f} s | {lib.ptxas_summary()} | "
+              f"SASS: {imma} IMMA, {_sass_count(lib.library_path(), 'POPC')} "
+              f"POPC")
+        if imma == 0:
+            raise AssertionError(f"{lib.name}: no IMMA instruction in its SASS")
     print(f"[build] {len(libs)} kernels in {dt:.2f} s (parallel nvcc)")
 
 
@@ -130,7 +161,8 @@ def _descriptors(rng, n, m):
     b[::3, 7] |= np.uint32(0x80000000)
     if m > 10:
         b[5::11] = b[3:3 + len(b[5::11])]            # duplicated key rows
-    a[::5] = b[rng.integers(0, m, len(a[::5]))]      # queries equal to keys
+    if m:
+        a[::5] = b[rng.integers(0, m, len(a[::5]))]  # queries equal to keys
     if n > 4:
         a[1::4] = a[0]                               # duplicated query rows
     return a, b
@@ -176,24 +208,37 @@ def _time_ms(fn, reps=20, rounds=5):
     return float(np.median(times))
 
 
+def _gated_exact(n, m, seed, device):
+    """Inputs for [n x m], the kernel against the plain version (exact
+    equality), and the max abs error; raises on any difference."""
+    from orb_slam2_map_tpu_torch.ops import gated_nn_cuda, matching
+
+    a, b, gate = _gated_inputs(n, m, seed, device)
+    idx, best, second = gated_nn_cuda.gated_nn(a, b, gate)
+    torch.cuda.synchronize()
+    ridx, rbest, rsecond = matching.gated_nn_plain(a, b, gate)
+    err = max(float((idx.long() - ridx.long()).abs().max()),
+              float((best - rbest).abs().max()),
+              float((second - rsecond).abs().max()))
+    if not (torch.equal(idx, ridx) and torch.equal(best, rbest)
+            and torch.equal(second, rsecond)):
+        bad = int(((idx != ridx) | (best != rbest)
+                   | (second != rsecond)).sum())
+        raise AssertionError(f"gated_nn kernel != plain at [{n}x{m}]: "
+                             f"{bad} rows differ, max abs err {err}")
+    return a, b, gate, err
+
+
 def phase_gated_nn(device, card):
     from orb_slam2_map_tpu_torch.ops import gated_nn_cuda, matching
 
+    errs = [_gated_exact(n, m, 300 + i, device)[3]
+            for i, (n, m) in enumerate(RAGGED_GATED_SHAPES)]
+    print(f"[kernel] gated_nn exact at the ragged shapes "
+          f"{RAGGED_GATED_SHAPES} (max abs err {max(errs)})")
     rows = []
     for i, (n, m) in enumerate(GATED_SHAPES):
-        a, b, gate = _gated_inputs(n, m, seed=100 + i, device=device)
-        idx, best, second = gated_nn_cuda.gated_nn(a, b, gate)
-        torch.cuda.synchronize()
-        ridx, rbest, rsecond = matching.gated_nn_plain(a, b, gate)
-        err = max(float((idx.long() - ridx.long()).abs().max()),
-                  float((best - rbest).abs().max()),
-                  float((second - rsecond).abs().max()))
-        if not (torch.equal(idx, ridx) and torch.equal(best, rbest)
-                and torch.equal(second, rsecond)):
-            bad = int(((idx != ridx) | (best != rbest)
-                       | (second != rsecond)).sum())
-            raise AssertionError(f"gated_nn kernel != plain at [{n}x{m}]: "
-                                 f"{bad} rows differ, max abs err {err}")
+        a, b, gate, err = _gated_exact(n, m, 100 + i, device)
         # plain, kernel, kernel, plain
         p1 = _time_ms(lambda: matching.gated_nn_plain(a, b, gate))
         k1 = _time_ms(lambda: gated_nn_cuda.gated_nn(a, b, gate))
@@ -208,32 +253,63 @@ def phase_gated_nn(device, card):
         print(f"[kernel] gated_nn [{n}x{m}] exact (max abs err {err}); "
               f"kernel {ms:.4f} ms ({k1:.4f}/{k2:.4f}), plain {plain_ms:.4f} ms "
               f"({p1:.4f}/{p2:.4f}), bound {bound_ms:.5f} ms ({bound_by}), "
-              f"no single PyTorch call | {card}")
-        rows.append(dict(shape=(n, m), err=err, ms=ms, plain_ms=plain_ms,
-                         bound_ms=bound_ms, bound_by=bound_by))
+              f"{float(gate.float().mean()):.3f} of pairs open, no single "
+              f"PyTorch call | {card}")
+        rows.append(dict(shape=(n, m), err=max(err, *errs), ms=ms,
+                         plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by))
     return rows
+
+
+def _hamming_exact(n, m, seed, device):
+    from orb_slam2_map_tpu_torch.ops import hamming_cuda, matching
+
+    rng = np.random.default_rng(seed)
+    a_np, b_np = _descriptors(rng, n, m)
+    a = torch.as_tensor(a_np.view(np.int32), device=device)
+    b = torch.as_tensor(b_np.view(np.int32), device=device)
+    d = hamming_cuda.hamming_matrix(a, b)
+    torch.cuda.synchronize()
+    ref = matching.hamming_matrix_plain(a, b)
+    err = float((d - ref).abs().max())
+    if not torch.equal(d, ref):
+        raise AssertionError(f"hamming kernel != plain at [{n}x{m}]: "
+                             f"{int((d != ref).sum())} entries differ, "
+                             f"max abs err {err}")
+    return a, b, ref, err
+
+
+def _int_mm_yardstick(a, b, ref):
+    """torch._int_mm (cuBLAS int8 tensor cores) on operands unpacked to
+    +-1 int8 beforehand: the same dot product as the kernel's, without
+    the unpack and the conversion to distances. Returns a zero-argument
+    call, or None where cuBLAS refuses the shape."""
+    from orb_slam2_map_tpu_torch.ops import matching
+
+    A8 = matching.unpack_pm1(a).to(torch.int8)
+    B8t = matching.unpack_pm1(b).to(torch.int8).t()
+    try:
+        dot = torch._int_mm(A8, B8t)
+    except RuntimeError:
+        return None
+    if not torch.equal((256.0 - dot.float()) * 0.5, ref):
+        raise AssertionError(f"_int_mm yardstick != plain at {tuple(ref.shape)}")
+    return lambda: torch._int_mm(A8, B8t)
 
 
 def phase_hamming(device, card):
     from orb_slam2_map_tpu_torch.ops import hamming_cuda, matching
 
+    errs = [_hamming_exact(n, m, 400 + i, device)[3]
+            for i, (n, m) in enumerate(RAGGED_HAMMING_SHAPES)]
+    print(f"[kernel] hamming exact at the ragged shapes "
+          f"{RAGGED_HAMMING_SHAPES} (max abs err {max(errs)})")
     rows = []
     for i, (n, m) in enumerate(HAMMING_SHAPES):
-        rng = np.random.default_rng(200 + i)
-        a_np, b_np = _descriptors(rng, n, m)
-        a = torch.as_tensor(a_np.view(np.int32), device=device)
-        b = torch.as_tensor(b_np.view(np.int32), device=device)
-        d = hamming_cuda.hamming_matrix(a, b)
-        torch.cuda.synchronize()
-        ref = matching.hamming_matrix_plain(a, b)
-        err = float((d - ref).abs().max())
-        if not torch.equal(d, ref):
-            raise AssertionError(f"hamming kernel != plain at [{n}x{m}]: "
-                                 f"{int((d != ref).sum())} entries differ, "
-                                 f"max abs err {err}")
+        a, b, ref, err = _hamming_exact(n, m, 200 + i, device)
         # the stereo matcher's masked_nn takes the lowest column on ties
         # (jnp.argmin): hold torch.min to that on the card
-        res = matching.masked_nn(d, ref < 120.0, max_dist=100.0)
+        res = matching.masked_nn(ref, ref < 120.0, max_dist=100.0)
         dg = torch.where(ref < 120.0, ref, matching.INF)
         col = torch.arange(m, device=device)
         first = torch.where(dg == dg.amin(1, keepdim=True), col, m).amin(1)
@@ -247,22 +323,75 @@ def phase_hamming(device, card):
         lib = torch.addmm(half, A, B.T, alpha=-0.5)
         if not torch.equal(lib, ref):
             raise AssertionError(f"addmm yardstick != plain at [{n}x{m}]")
+        int_mm = _int_mm_yardstick(a, b, ref)
         p1 = _time_ms(lambda: matching.hamming_matrix_plain(a, b))
         k1 = _time_ms(lambda: hamming_cuda.hamming_matrix(a, b))
         k2 = _time_ms(lambda: hamming_cuda.hamming_matrix(a, b))
         p2 = _time_ms(lambda: matching.hamming_matrix_plain(a, b))
         lib_ms = _time_ms(lambda: torch.addmm(half, A, B.T, alpha=-0.5))
+        int_mm_ms = _time_ms(int_mm) if int_mm is not None else None
         ms, plain_ms = min(k1, k2), min(p1, p2)
         bound_ms, bound_by = _bound((n + m) * 32 + n * m * 4, 2 * 256 * n * m)
+        int_mm_txt = (f"{int_mm_ms:.4f} ms" if int_mm_ms is not None
+                      else "refused by cuBLAS at this shape")
         print(f"[kernel] hamming [{n}x{m}] exact (max abs err {err}), "
               f"masked_nn first-index on ties; kernel {ms:.4f} ms "
               f"({k1:.4f}/{k2:.4f}), plain {plain_ms:.4f} ms ({p1:.4f}/"
-              f"{p2:.4f}), addmm {lib_ms:.4f} ms, bound {bound_ms:.5f} ms "
-              f"({bound_by}) | {card}")
-        rows.append(dict(shape=(n, m), err=err, ms=ms, plain_ms=plain_ms,
-                         library_ms=lib_ms, bound_ms=bound_ms,
-                         bound_by=bound_by))
+              f"{p2:.4f}), addmm {lib_ms:.4f} ms, _int_mm on +-1 int8 "
+              f"{int_mm_txt}, bound {bound_ms:.5f} ms ({bound_by}) | {card}")
+        rows.append(dict(shape=(n, m), err=max(err, *errs), ms=ms,
+                         plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=bound_ms, bound_by=bound_by))
     return rows
+
+
+class GateDensity:
+    """Open pairs of the gate of every gated_nn launch on a path, summed
+    on the device (a reduction per launch, no host synchronisation) under
+    the current bucket, and read once after the path."""
+
+    def __init__(self, device):
+        self.device = device
+        self.bucket = "tracking"
+        self.sums = {}       # bucket -> [open pairs, pairs, sum of fractions]
+        self.launches = {}   # bucket -> launches with a non-empty gate
+
+    def __enter__(self):
+        from orb_slam2_map_tpu_torch.ops import gated_nn_cuda
+
+        launch = self._launch = gated_nn_cuda.gated_nn
+
+        def counted(desc_a, desc_b, gate):
+            if gate.numel():
+                acc = self.sums.get(self.bucket)
+                if acc is None:
+                    acc = self.sums[self.bucket] = torch.zeros(
+                        3, dtype=torch.float64, device=self.device)
+                    self.launches[self.bucket] = 0
+                opened = gate.sum(dtype=torch.float64)
+                acc[0] += opened
+                acc[1] += float(gate.numel())
+                acc[2] += opened / gate.numel()
+                self.launches[self.bucket] += 1
+            return launch(desc_a, desc_b, gate)
+
+        gated_nn_cuda.gated_nn = counted
+        return self
+
+    def __exit__(self, *exc):
+        from orb_slam2_map_tpu_torch.ops import gated_nn_cuda
+
+        gated_nn_cuda.gated_nn = self._launch
+
+    def report(self) -> str:
+        parts = []
+        for bucket, acc in self.sums.items():
+            opened, pairs, frac = acc.tolist()
+            n = self.launches[bucket]
+            parts.append(f"{bucket}: mean {frac / n:.4f} of pairs open over "
+                         f"{n} gated_nn launches ({opened / pairs:.4f} of all "
+                         f"{pairs:.0f} pairs)")
+        return "; ".join(parts)
 
 
 def phase_slice(device, card, n_frames=N_FRAMES):
@@ -289,14 +418,15 @@ def phase_slice(device, card, n_frames=N_FRAMES):
 
     _reset_launches()
     per_frame, wall, lost = [], [], 0
-    for ts_i, gray, depth, _ in frames:
-        before = gated_nn_cuda.LAUNCHES
-        t0 = time.perf_counter()
-        pose = tracker.track_rgbd(ts_i, gray, depth)
-        torch.cuda.synchronize()
-        wall.append(time.perf_counter() - t0)
-        per_frame.append(gated_nn_cuda.LAUNCHES - before)
-        lost += pose is None
+    with GateDensity(device) as density:
+        for ts_i, gray, depth, _ in frames:
+            before = gated_nn_cuda.LAUNCHES
+            t0 = time.perf_counter()
+            pose = tracker.track_rgbd(ts_i, gray, depth)
+            torch.cuda.synchronize()
+            wall.append(time.perf_counter() - t0)
+            per_frame.append(gated_nn_cuda.LAUNCHES - before)
+            lost += pose is None
     launches = _read_launches()
 
     ts_raw, T_raw = tracker.trajectory(refine=False)
@@ -311,6 +441,7 @@ def phase_slice(device, card, n_frames=N_FRAMES):
           f"median frame {med_ms:.2f} ms (mean {np.mean(wall[1:]) * 1e3:.2f}, "
           f"first {wall[0] * 1e3:.1f}), launches {launches} (gated_nn min "
           f"per steady-state frame {min(per_frame[2:])}) | {card}")
+    print(f"[slice] gate density, RGB-D {density.report()} | {card}")
     if lost:
         raise AssertionError(f"{lost} lost frames")
     if not ate_raw <= ATE_GATE_M:
@@ -425,10 +556,15 @@ def phase_stereo(device, card, n_frames=N_STEREO):
     mapper = slam.local_mapper
     process = mapper.process_keyframe
     mapping_launches = [0]
+    density = GateDensity(device)
 
     def counted(kid, *args, **kwargs):
         before = gated_nn_cuda.LAUNCHES
-        process(kid, *args, **kwargs)
+        density.bucket = "local mapping"
+        try:
+            process(kid, *args, **kwargs)
+        finally:
+            density.bucket = "stereo tracking"
         mapping_launches[0] += gated_nn_cuda.LAUNCHES - before
 
     mapper.process_keyframe = counted
@@ -436,15 +572,17 @@ def phase_stereo(device, card, n_frames=N_STEREO):
     profiling.PROFILER.sync = torch.cuda.synchronize
     _reset_launches()
     wall, per_frame_hamming, lost = [], [], 0
+    density.bucket = "stereo tracking"
     try:
-        for ts_i, (gl, gr) in zip(ts, frames):
-            before = hamming_cuda.LAUNCHES
-            t0 = time.perf_counter()
-            pose = slam.track_stereo(float(ts_i), gl, gr)
-            torch.cuda.synchronize()
-            wall.append(time.perf_counter() - t0)
-            per_frame_hamming.append(hamming_cuda.LAUNCHES - before)
-            lost += pose is None
+        with density:
+            for ts_i, (gl, gr) in zip(ts, frames):
+                before = hamming_cuda.LAUNCHES
+                t0 = time.perf_counter()
+                pose = slam.track_stereo(float(ts_i), gl, gr)
+                torch.cuda.synchronize()
+                wall.append(time.perf_counter() - t0)
+                per_frame_hamming.append(hamming_cuda.LAUNCHES - before)
+                lost += pose is None
     finally:
         profiling.PROFILER.sync = None
     launches = _read_launches()
@@ -461,6 +599,7 @@ def phase_stereo(device, card, n_frames=N_STEREO):
           f"boundaries synchronised), launches {launches} (hamming min per "
           f"frame {min(per_frame_hamming)}, gated_nn in local mapping "
           f"{mapping_launches[0]}) | {card}")
+    print(f"[stereo] gate density, {density.report()} | {card}")
     print("[stereo] profile_report():\n" + slam.profile_report())
     if lost:
         raise AssertionError(f"{lost} lost stereo frames")

@@ -4,7 +4,8 @@ Each kernel source under csrc/ is compiled with nvcc for sm_90a into a
 shared library with a plain C entry (no PyTorch headers, so a build
 takes seconds) and bound with ctypes. A library is built on first use
 into build/torch_kernels/ at the repository root, under a name keyed on
-a hash of its source and flags, so an edited .cu rebuilds.
+a hash of its source, every header under csrc/ and the flags, so an
+edited .cu or .cuh rebuilds.
 `build_all` starts one nvcc per source at once and waits for all.
 
 There is no fallback: a missing nvcc, a failed build or a failed launch
@@ -45,11 +46,13 @@ def nvcc() -> str:
 class KernelLibrary:
     """One csrc/<name>.cu compiled to a shared library exporting `entry`
     with the given ctypes argument types (returning int: the CUDA error
-    of the launch, 0 = ok)."""
+    of the launch, 0 = ok). `source` overrides the .cu file (another
+    version of a kernel, for a side-by-side timing)."""
 
-    def __init__(self, name: str, entry: str, argtypes: Sequence):
+    def __init__(self, name: str, entry: str, argtypes: Sequence,
+                 source: Optional[Path] = None):
         self.name = name
-        self.source = CSRC / f"{name}.cu"
+        self.source = Path(source) if source else CSRC / f"{name}.cu"
         self.entry = entry
         self.argtypes = list(argtypes)
         self.build_log = ""       # nvcc's output of the build this process made
@@ -60,9 +63,11 @@ class KernelLibrary:
         self._lock = threading.Lock()
 
     def library_path(self) -> Path:
-        digest = hashlib.sha256(self.source.read_bytes()
-                                + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        return BUILD_DIR / f"{self.name}_{digest}.so"
+        h = hashlib.sha256(self.source.read_bytes())
+        for header in sorted(self.source.parent.glob("*.cuh")):
+            h.update(header.name.encode() + header.read_bytes())
+        h.update(" ".join(NVCC_FLAGS).encode())
+        return BUILD_DIR / f"{self.name}_{h.hexdigest()[:16]}.so"
 
     def _tmp_path(self) -> Path:
         return self.library_path().with_suffix(f".{os.getpid()}.tmp.so")
@@ -93,12 +98,19 @@ class KernelLibrary:
             raise RuntimeError(f"nvcc failed on {self.source.name} "
                                f"({proc.returncode}):\n{log}")
         os.replace(self._tmp_path(), out)
+        out.with_suffix(".log").write_text(log)
         return out
 
     def ptxas_summary(self) -> str:
-        """The registers / shared-memory lines ptxas printed (-Xptxas -v)."""
-        return " | ".join(ln.strip() for ln in self.build_log.splitlines()
-                          if "registers" in ln or "smem" in ln)
+        """The registers / shared-memory / spill lines ptxas printed
+        (-Xptxas -v), from this process's build or the log kept beside
+        the library."""
+        log = self.build_log
+        if not log and self.library_path().with_suffix(".log").exists():
+            log = self.library_path().with_suffix(".log").read_text()
+        return " | ".join(ln.strip() for ln in log.splitlines()
+                          if "registers" in ln or "smem" in ln
+                          or "spill" in ln)
 
     def fn(self):
         """The bound C entry, building and loading the library once."""
@@ -130,6 +142,11 @@ def check(name, t, dtype, shape, device):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def check_aligned(name, t, alignment=16):
+    if t.numel() and t.data_ptr() % alignment:
+        raise ValueError(f"{name} must be {alignment}-byte aligned")
 
 
 def require_cuda(name: str, t: torch.Tensor):

@@ -18,15 +18,19 @@ LIB = cuda_build.KernelLibrary(
     "gated_nn", "gated_nn_launch",
     [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
 
+# columns are packed into the low 22 bits of the kernel's candidate keys
+MAX_KEYS = (1 << 22) - 64
+
 # incremented once per kernel launch, and nowhere else
 LAUNCHES = 0
 
 
 def gated_nn(desc_a: torch.Tensor, desc_b: torch.Tensor, gate: torch.Tensor):
     """Launch the kernel: desc_a [N, 8] int32, desc_b [M, 8] int32 (bit
-    views of packed uint32 words), gate [N, M] bool, all contiguous on
-    one CUDA device. Returns (idx int32 [N], best f32 [N], second f32 [N])
-    on the current stream, without synchronising."""
+    views of packed uint32 words, 16-byte aligned), gate [N, M] bool, all
+    contiguous on one CUDA device, M <= 2^22 - 64. Returns (idx int32 [N],
+    best f32 [N], second f32 [N]) on the current stream, without
+    synchronising."""
     global LAUNCHES
     cuda_build.require_cuda("gated_nn_cuda", desc_a)
     device = desc_a.device
@@ -34,6 +38,10 @@ def gated_nn(desc_a: torch.Tensor, desc_b: torch.Tensor, gate: torch.Tensor):
     cuda_build.check("desc_a", desc_a, torch.int32, (n, 8), device)
     cuda_build.check("desc_b", desc_b, torch.int32, (m, 8), device)
     cuda_build.check("gate", gate, torch.bool, (n, m), device)
+    cuda_build.check_aligned("desc_a", desc_a)
+    cuda_build.check_aligned("desc_b", desc_b)
+    if m > MAX_KEYS:
+        raise ValueError(f"{m} keys exceed the kernel's {MAX_KEYS}")
     launch = LIB.fn()
     idx = torch.empty(n, dtype=torch.int32, device=device)
     best = torch.empty(n, dtype=torch.float32, device=device)

@@ -33,9 +33,8 @@ def hamming_matrix(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Tensor:
     n, m = desc_a.shape[0], desc_b.shape[0]
     cuda_build.check("desc_a", desc_a, torch.int32, (n, 8), device)
     cuda_build.check("desc_b", desc_b, torch.int32, (m, 8), device)
-    for name, t in (("desc_a", desc_a), ("desc_b", desc_b)):
-        if t.numel() and t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned")
+    cuda_build.check_aligned("desc_a", desc_a)
+    cuda_build.check_aligned("desc_b", desc_b)
     if (n + 63) // 64 > 65535:
         raise ValueError(f"{n} query rows exceed the kernel's grid")
     launch = LIB.fn()
