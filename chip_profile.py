@@ -4,7 +4,9 @@ the smoke's two cells, on one NVIDIA GPU; the card's POPC issue rate
 its mma.sync m16n8k32 s8 rate (csrc/mma_rate.cu), which bounds the
 tensor-core ones.
 
-    python3 chip_profile.py
+    python3 chip_profile.py          # the two cells + the rate probes
+    python3 chip_profile.py async    # the async cell: sync / async / async
+                                     # with the continuous-BA thread idle
 
 For the 640x480 RGB-D sweep (tracking only, frames 50-59 after 50 warm
 frames) and the KITTI-width stereo SLAMSystem sweep (frames 40-59 after
@@ -287,9 +289,65 @@ def mma_rate(device, card, iters=4096):
           f"| {card}")
 
 
+def profile_async(device, card, n_frames=120):
+    """The [async] cell's first `n_frames` frames three ways in one
+    process: the sync tracker (track_rgbd), the async pipeline as it
+    runs, and the async pipeline with its continuous-BA thread idle (a
+    diagnostic: every thread launches from Python under one GIL). Prints
+    fps, the dispatch thread's host ms per frame and the raw ATE."""
+    from orb_slam2_map_tpu_torch.io.evaluate import ate_rmse
+    from orb_slam2_map_tpu_torch.slam.async_pipeline import AsyncRGBDPipeline
+    from orb_slam2_map_tpu_torch.utils import profiling
+
+    ba_loop = AsyncRGBDPipeline._ba_loop
+
+    def idle(self):
+        while self._running:
+            time.sleep(0.05)
+
+    for mode in ("sync", "async", "async, continuous BA idle"):
+        slam, seq, frames = chip_smoke._async_system(device, chip_smoke.N_ASYNC)
+        frames = frames[:n_frames]
+        if mode.endswith("idle"):
+            AsyncRGBDPipeline._ba_loop = idle
+        profiling.PROFILER.reset()
+        torch.cuda.synchronize()
+        try:
+            t0 = time.perf_counter()
+            for ts_i, gray, depth, _ in frames:
+                if mode == "sync":
+                    slam.track_rgbd(ts_i, gray, depth)
+                else:
+                    slam.track_rgbd_async(ts_i, gray, depth)
+            if mode != "sync":
+                slam.pipeline.flush(timeout=chip_smoke.ASYNC_TIMEOUT_S)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            AsyncRGBDPipeline._ba_loop = ba_loop
+        summ = profiling.PROFILER.summary()
+        ts_raw, T_raw = slam.tracker.trajectory(refine=False)
+        ate = ate_rmse(ts_raw, T_raw[:, :3, 3], seq.timestamps[:n_frames],
+                       seq.gt_Twc[:n_frames, :3, 3])
+        stage = "track_rgbd" if mode == "sync" else "pipeline/dispatch"
+        ba = summ.get("pipeline/continuous_ba", {})
+        print(f"[profile] async cell, first {n_frames} frames, {mode}: "
+              f"{n_frames / wall:.3f} fps ({wall:.2f} s), {stage} host "
+              f"{summ.get(stage, {}).get('mean_ms', float('nan')):.2f} ms per "
+              f"frame (median {summ.get(stage, {}).get('median_ms', float('nan')):.2f}), "
+              f"continuous BA {ba.get('count', 0)} solves of "
+              f"{ba.get('mean_ms', 0.0):.1f} ms, keyframes "
+              f"{slam.map.n_keyframes()}, raw ATE {ate * 100:.3f} cm | {card}")
+        slam.shutdown()
+
+
 def main():
     device, card = chip_smoke.phase_device()
     chip_smoke.phase_build()
+    if sys.argv[1:] == ["async"]:
+        profile_async(device, card)
+        print(card)
+        return
     popc_rate(device, card)
     mma_rate(device, card)
     _annotate(RGBD_STAGES + [s for s in STEREO_STAGES

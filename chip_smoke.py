@@ -18,13 +18,27 @@ script exits non-zero without the final line:
 4. slice: the port's Tracker over a 120-frame 640x480 RGB-D sweep with
    sensor noise (TUM1 ORB settings), 0 lost frames and raw ATE <= 2 cm,
    and the share of open gate pairs over its gated_nn launches;
-5. fused: `fused_frame_step` over the next 10 frames of the sweep;
-6. stereo: SLAMSystem(Sensor.STEREO, local mapping, no loop closing) at
+5. fused: `fused_frame_step` over the next 10 frames of the sweep, then
+   one more under torch.profiler (its kernel launches) and one with
+   torch.cuda.set_sync_debug_mode("error") (the dispatch never waits for
+   the device);
+6. reloc: the slice's tracker kidnapped at three frames of its sweep
+   (LOST, no velocity): each must relocalize (EPnP-RANSAC) within 2 cm
+   of the aligned ground truth; ms per relocalization, candidates tried,
+   gated_nn launches per relocalization;
+7. stereo: SLAMSystem(Sensor.STEREO, local mapping, no loop closing) at
    KITTI 00-02 width (1241x376, 2000 features, 2040 keypoint slots) over
    a 60-frame stereo sweep, 0 lost frames and raw ATE <= 2 cm, with the
    per-stage times of its profile and the open-gate share in tracking
    and in local mapping;
-7. the kernels' JSON line, the card line, then the result line.
+8. async: bench.py's pass 1 at full width, SLAMSystem(Sensor.RGBD, local
+   mapping, no loop closing) over the 240-frame noisy 640x480 sweep
+   through track_rgbd_async + flush: fps, 0 lost frames, raw ATE <= 2 cm,
+   >= 3 gated_nn launches on the dispatch thread per async frame, the
+   pipeline's stage means, no worker error;
+9. recovery: an async run with a 4-frame blackout must end OK (which
+   branch ran, relocalization or reset, is printed);
+10. the kernels' JSON line, the card line, then the result line.
 
 Each kernel counts its launches; the counts are set to 0 right before a
 path runs and read right after, and every kernel of a path must have
@@ -53,6 +67,13 @@ N_STEREO = 60           # stereo: 6 s of 10 fps KITTI-rate data
 # 40 frames; at 1 m the keyframe policy inserts keyframes and local
 # mapping runs
 STEREO_SWEEP_AMPLITUDE = 1.0
+N_ASYNC = 240           # bench.py pass 1: the 240-frame noisy sweep
+# recovery run: the first 70 frames of a 90-frame sweep (the sweep's
+# speed is set by its length), frames 50-53 replaced by featureless noise
+N_RECOVERY = (70, 90)
+BLACKOUT = (50, 54)
+RELOC_FRAMES = (30, 60, 90)   # kidnap points of the [slice] sweep
+ASYNC_TIMEOUT_S = 300.0
 ATE_GATE_M = 0.02       # the project's ATE gate (BASELINE.md)
 FUSED_GATE_M = 0.02
 # gated-NN shapes: RGB-D motion-model / local-map search (1032 slots),
@@ -511,6 +532,275 @@ def phase_fused(device, card, tracker, seq, raw_traj):
     if max(errs) > FUSED_GATE_M:
         raise AssertionError(f"fused_frame_step centre error {max(errs)} m")
 
+    # two more frames, every input uploaded beforehand: one under the
+    # profiler (kernel launches of one step), one with any host
+    # synchronisation raising (the async pipeline's dispatch never waits)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    steps = []
+    for k in (N_FUSED, N_FUSED + 1):
+        _, gray, depth, _ = seq[1 + k]
+        mids, mids_p, mp_valid = tracker._local_candidates(cur_obs)
+        steps.append((dt(gray), dt(depth), dt(mids_p, torch.int64),
+                      dt(mp_valid, torch.bool)))
+    torch.cuda.synchronize()
+
+    def step(args, carry):
+        g, d, m, v = args
+        return pipeline_step.fused_frame_step(
+            tracker.cfg, carry, g, d, ctrl, cols["mp_pos"], cols["mp_desc"],
+            cols["mp_normal"], cols["mp_min_dist"], cols["mp_max_dist"],
+            alive, m, v, cols["mp_redirect"])
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        carry, packed, _ = step(steps[0], carry)
+        torch.cuda.synchronize()
+    events = prof.events()
+    launch_calls = sum(1 for e in events if e.device_type == DeviceType.CPU
+                       and e.name in ("cudaLaunchKernel", "cuLaunchKernel",
+                                      "cudaLaunchKernelExC"))
+    gpu_kernels = sum(1 for e in events if e.device_type == DeviceType.CUDA
+                      and not getattr(e, "is_user_annotation", False))
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        carry, packed, _ = step(steps[1], carry)
+        host_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    out = packed.cpu().numpy()
+    if out[5] < 0.5:
+        raise AssertionError(f"fused_frame_step not ok under sync-debug mode: "
+                             f"head {out[:8]}")
+    print(f"[fused] one fused_frame_step: {launch_calls} kernel-launch calls, "
+          f"{gpu_kernels} GPU kernels (torch.profiler); the next ran clean "
+          f"under torch.cuda.set_sync_debug_mode('error') in {host_ms:.2f} ms "
+          f"of host time | {card}")
+    return (A_R, A_t), launch_calls
+
+
+class ThreadLaunches:
+    """gated_nn launches counted per host thread (the async pipeline
+    launches from its dispatch, mapper and continuous-BA threads)."""
+
+    def __init__(self):
+        self.by_thread = {}
+
+    def __enter__(self):
+        import threading
+
+        from orb_slam2_map_tpu_torch.ops import gated_nn_cuda
+
+        launch = self._launch = gated_nn_cuda.gated_nn
+        lock = threading.Lock()
+
+        def counted(*args):
+            out = launch(*args)
+            with lock:
+                me = threading.get_ident()
+                self.by_thread[me] = self.by_thread.get(me, 0) + 1
+            return out
+
+        gated_nn_cuda.gated_nn = counted
+        return self
+
+    def __exit__(self, *exc):
+        from orb_slam2_map_tpu_torch.ops import gated_nn_cuda
+
+        gated_nn_cuda.gated_nn = self._launch
+
+    def mine(self) -> int:
+        import threading
+
+        return self.by_thread.get(threading.get_ident(), 0)
+
+
+def phase_reloc(device, card, tracker, seq, align):
+    """Kidnap the [slice] tracker at three points of its sweep (LOST, no
+    velocity, then that frame): it must relocalize, within 2 cm of the
+    aligned ground truth."""
+    from orb_slam2_map_tpu_torch.ops import gated_nn_cuda
+    from orb_slam2_map_tpu_torch.slam import search, tracking
+
+    A_R, A_t = align
+    match = search.match_frame_to_kf
+    relocalize = tracker._relocalize
+    stats = {"candidates": 0, "ms": [], "launches": []}
+
+    def counted_match(*args, **kwargs):
+        stats["candidates"] += 1
+        return match(*args, **kwargs)
+
+    def timed(f):
+        torch.cuda.synchronize()
+        before = gated_nn_cuda.LAUNCHES
+        t0 = time.perf_counter()
+        out = relocalize(f)
+        torch.cuda.synchronize()
+        stats["ms"].append((time.perf_counter() - t0) * 1e3)
+        stats["launches"].append(gated_nn_cuda.LAUNCHES - before)
+        return out
+
+    errs = []
+    search.match_frame_to_kf = counted_match
+    tracker._relocalize = timed
+    _reset_launches()
+    try:
+        for i in RELOC_FRAMES:
+            ts_i, gray, depth, _ = seq[i]
+            tracker.state = tracking.TrackingState.LOST
+            tracker.velocity = None
+            pose = tracker.track_rgbd(ts_i, gray, depth)
+            if pose is None or tracker.state != tracking.TrackingState.OK:
+                raise AssertionError(f"kidnap at frame {i}: not relocalized")
+            c = A_R @ (-pose[:3, :3].T @ pose[:3, 3]) + A_t
+            errs.append(float(np.linalg.norm(c - seq.gt_Twc[i][:3, 3])))
+    finally:
+        search.match_frame_to_kf = match
+        del tracker._relocalize
+    launches = _read_launches()
+    print(f"[reloc] {len(RELOC_FRAMES)} kidnaps (frames {RELOC_FRAMES}) "
+          f"relocalized against {tracker.map.n_keyframes()} keyframes: "
+          f"centre error (cm) {np.round(np.asarray(errs) * 100, 3).tolist()}, "
+          f"ms per relocalization {np.round(stats['ms'], 2).tolist()}, "
+          f"{stats['candidates']} candidates tried, gated_nn launches per "
+          f"relocalization {stats['launches']}, launches {launches} | {card}")
+    if max(errs) > ATE_GATE_M:
+        raise AssertionError(f"relocalized centre error {max(errs)} m")
+    if min(stats["launches"]) < 1 or sum(stats["launches"]) < stats["candidates"]:
+        raise AssertionError(f"fewer gated_nn launches than candidates: {stats}")
+    return launches
+
+
+def _async_system(device, n_frames, noise_seed=0):
+    """bench.py's pass 1 at full width: SLAMSystem(RGBD, local mapping, no
+    loop closing; MapStore(512, 65536), local-map cap 4096, pipeline
+    depth 24) and the noisy 640x480 sweep (SensorNoiseModel(seed=0)),
+    frames rendered beforehand."""
+    from orb_slam2_map_tpu_torch.config import SystemConfig
+    from orb_slam2_map_tpu_torch.io.synthetic import (
+        SensorNoiseModel, SyntheticRGBDSequence, SyntheticWorld,
+        synthetic_camera, sweep_trajectory)
+    from orb_slam2_map_tpu_torch.slam.system import SLAMSystem, Sensor
+
+    cam = synthetic_camera()
+    world = SyntheticWorld(cam=cam, seed=0, device=device)
+    Twc, ts = sweep_trajectory(n_frames)
+    seq = SyntheticRGBDSequence(world, Twc, ts,
+                                noise=SensorNoiseModel(seed=noise_seed))
+    frames = [seq[i] for i in range(n_frames)]
+    slam = SLAMSystem(SystemConfig(camera=cam), Sensor.RGBD,
+                      enable_loop_closing=False, device=device)
+    return slam, seq, frames
+
+
+def _stop(slam):
+    pipe = slam.pipeline
+    slam.shutdown()
+    alive = [t.name for t in pipe.threads() if t.is_alive()]
+    if alive:
+        raise AssertionError(f"pipeline threads alive after shutdown: {alive}")
+    if pipe.errors:
+        raise AssertionError(f"pipeline worker errors: {pipe.errors!r}")
+
+
+def phase_async(device, card, n_frames=N_ASYNC):
+    from orb_slam2_map_tpu_torch.io.evaluate import ate_rmse
+    from orb_slam2_map_tpu_torch.slam import pipeline_step
+    from orb_slam2_map_tpu_torch.utils import profiling
+
+    slam, seq, frames = _async_system(device, n_frames)
+    per_step = []
+    fused = pipeline_step.fused_frame_step
+    torch.cuda.synchronize()
+    profiling.PROFILER.reset()
+    _reset_launches()
+    with ThreadLaunches() as counts:
+        def counted(*args, **kwargs):
+            before = counts.mine()
+            out = fused(*args, **kwargs)
+            per_step.append(counts.mine() - before)
+            return out
+
+        pipeline_step.fused_frame_step = counted
+        try:
+            t0 = time.perf_counter()
+            for ts_i, gray, depth, _ in frames:
+                slam.track_rgbd_async(ts_i, gray, depth)
+            slam.pipeline.flush(timeout=ASYNC_TIMEOUT_S)
+            wall = time.perf_counter() - t0
+        finally:
+            pipeline_step.fused_frame_step = fused
+    launches = _read_launches()
+    summary = profiling.PROFILER.summary()
+    logs = slam.tracker.logs
+    lost = sum(lg.lost for lg in logs) + (n_frames - len(logs))
+    ts_raw, T_raw = slam.tracker.trajectory(refine=False)
+    ate = ate_rmse(ts_raw, T_raw[:, :3, 3], seq.timestamps, seq.gt_Twc[:, :3, 3])
+    # [mean ms, count] per stage; fetch_batchsz is a count (frames per
+    # fetch), not a time
+    stages = {k.split("/", 1)[1]: [round(v["mean_ms"], 3), v["count"]]
+              for k, v in summary.items() if k.startswith("pipeline/")
+              and k != "pipeline/fetch_batchsz"}
+    batch = summary.get("pipeline/fetch_batchsz", {}).get("mean_ms", 0.0) / 1e3
+    dispatch_ms = summary.get("pipeline/dispatch", {}).get("mean_ms", float("nan"))
+    print(f"[async] {n_frames} frames 640x480 through track_rgbd_async + flush "
+          f"(pipeline depth {slam._pipeline_depth}): {n_frames / wall:.3f} fps "
+          f"({wall:.2f} s wall), lost {lost}, keyframes "
+          f"{slam.map.n_keyframes()}, points {slam.map.n_points()}, ATE raw "
+          f"{ate * 100:.3f} cm, {len(per_step)} frames dispatched async, "
+          f"dispatch thread host {dispatch_ms:.2f} ms per frame, gated_nn "
+          f"launches per async frame min {min(per_step, default=0)} max "
+          f"{max(per_step, default=0)}, "
+          f"launches {launches} | {card}")
+    print(f"[async] pipeline stages [mean ms, count]: {json.dumps(stages)}; "
+          f"mean frames per fetch {batch:.2f} | {card}")
+    _stop(slam)
+    if lost:
+        raise AssertionError(f"{lost} lost frames in the async run")
+    if not ate <= ATE_GATE_M:
+        raise AssertionError(f"async raw ATE {ate} m above {ATE_GATE_M} m")
+    if len(per_step) < n_frames // 2 or min(per_step) < 3:
+        raise AssertionError(f"async dispatch: {len(per_step)} frames, "
+                             f"gated_nn launches per frame {per_step}")
+    return launches, {"fps": n_frames / wall, "dispatch_ms": dispatch_ms}
+
+
+def phase_recovery(device, card, n_frames=N_RECOVERY):
+    """An async run with a 4-frame blackout (featureless noise, no depth):
+    the pipeline declares the failure, drains, replays the buffered frames
+    through the synchronous tracker and must end OK. n_frames: (frames
+    run, frames of the sweep)."""
+    slam, _, frames = _async_system(device, n_frames[1])
+    n_frames = n_frames[0]
+    frames = frames[:n_frames]
+    rng = np.random.default_rng(0)
+    H, W = frames[0][1].shape
+    _reset_launches()
+    t0 = time.perf_counter()
+    for i, (ts_i, gray, depth, _) in enumerate(frames):
+        if BLACKOUT[0] <= i < BLACKOUT[1]:
+            gray = rng.uniform(0, 2, (H, W)).astype(np.float32)
+            depth = np.zeros((H, W), dtype=np.float32)
+        slam.track_rgbd_async(ts_i, gray, depth)
+    slam.pipeline.flush(timeout=ASYNC_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    t = slam.tracker
+    branch = ("relocalized at frame " + str(t.last_reloc_frame_id)
+              if t.last_reloc_frame_id >= 0 else "reset and re-initialized")
+    print(f"[recovery] {n_frames} async frames, blackout at frames "
+          f"{BLACKOUT[0]}-{BLACKOUT[1] - 1}: failure declared at t = "
+          f"{t.failure_ts}, {branch}, final state {t.state.name}, "
+          f"{len(t.logs)} frames logged, {wall:.2f} s, launches "
+          f"{_read_launches()} | {card}")
+    ok = t.state.name == "OK" and bool(t.failure_ts)
+    _stop(slam)
+    if not ok:
+        raise AssertionError(f"recovery did not end OK: state {t.state.name}, "
+                             f"failures {t.failure_ts}")
+
 
 def _stereo_frames(device, cam, n_frames):
     """A rectified stereo sweep rendered on the card: the left eye on
@@ -622,11 +912,17 @@ def main():
     tracker, seq, rgbd_launches, raw_traj = phase_slice(device, card)
     if rgbd_launches["gated_nn"] < 1:
         raise AssertionError("the RGB-D path launched no gated_nn kernel")
-    phase_fused(device, card, tracker, seq, raw_traj)
+    align, _ = phase_fused(device, card, tracker, seq, raw_traj)
+    reloc_launches = phase_reloc(device, card, tracker, seq, align)
     stereo_launches = phase_stereo(device, card)
     for name, n in stereo_launches.items():
         if n < 1:
             raise AssertionError(f"the stereo path launched no {name} kernel")
+    async_launches, _ = phase_async(device, card)
+    phase_recovery(device, card)
+    for path, counts in (("reloc", reloc_launches), ("async", async_launches)):
+        if counts["gated_nn"] < 1:
+            raise AssertionError(f"the {path} path launched no gated_nn kernel")
 
     g = next(r for r in gated_rows if r["shape"] == (4096, 2040))
     h = next(r for r in hamming_rows if r["shape"] == (2040, 2040))
@@ -636,7 +932,9 @@ def main():
          "replaces": "orb_slam2_map_tpu/ops/pallas_kernels.py:125",
          "launches": stereo_launches["gated_nn"],
          "launches_by_path": {"rgbd": rgbd_launches["gated_nn"],
-                              "stereo": stereo_launches["gated_nn"]},
+                              "stereo": stereo_launches["gated_nn"],
+                              "reloc": reloc_launches["gated_nn"],
+                              "async": async_launches["gated_nn"]},
          "shape": list(g["shape"]),
          "max_abs_err": max(r["err"] for r in gated_rows),
          "ms": g["ms"], "plain_ms": g["plain_ms"], "bound_ms": g["bound_ms"],
@@ -646,7 +944,9 @@ def main():
          "replaces": "orb_slam2_map_tpu/ops/pallas_kernels.py:51",
          "launches": stereo_launches["hamming"],
          "launches_by_path": {"rgbd": rgbd_launches["hamming"],
-                              "stereo": stereo_launches["hamming"]},
+                              "stereo": stereo_launches["hamming"],
+                              "reloc": reloc_launches["hamming"],
+                              "async": async_launches["hamming"]},
          "shape": list(h["shape"]),
          "max_abs_err": max(r["err"] for r in hamming_rows),
          "ms": h["ms"], "plain_ms": h["plain_ms"], "bound_ms": h["bound_ms"],

@@ -9,6 +9,7 @@ ops/matching.py:gated_nn_plain.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -23,6 +24,8 @@ MAX_KEYS = (1 << 22) - 64
 
 # incremented once per kernel launch, and nowhere else
 LAUNCHES = 0
+_LAUNCHES_LOCK = threading.Lock()   # the async pipeline launches from
+                                   # several threads
 
 
 def gated_nn(desc_a: torch.Tensor, desc_b: torch.Tensor, gate: torch.Tensor):
@@ -54,5 +57,6 @@ def gated_nn(desc_a: torch.Tensor, desc_b: torch.Tensor, gate: torch.Tensor):
                     cuda_build.stream_of(device))
     if rc != 0:
         raise RuntimeError(f"gated_nn kernel launch failed: CUDA error {rc}")
-    LAUNCHES += 1
+    with _LAUNCHES_LOCK:
+        LAUNCHES += 1
     return idx, best, second

@@ -9,6 +9,7 @@ raises. The plain version lives in ops/matching.py:hamming_matrix_plain.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -20,6 +21,8 @@ LIB = cuda_build.KernelLibrary(
 
 # incremented once per kernel launch, and nowhere else
 LAUNCHES = 0
+_LAUNCHES_LOCK = threading.Lock()   # the async pipeline launches from
+                                   # several threads
 
 
 def hamming_matrix(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Tensor:
@@ -46,5 +49,6 @@ def hamming_matrix(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Tensor:
                     cuda_build.stream_of(device))
     if rc != 0:
         raise RuntimeError(f"hamming kernel launch failed: CUDA error {rc}")
-    LAUNCHES += 1
+    with _LAUNCHES_LOCK:
+        LAUNCHES += 1
     return out

@@ -23,7 +23,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..utils.device import default_device
+from ..utils.device import default_device, to_device
 
 COVIS_EDGE_MIN = 15  # keep covisibility edge if weight >= 15 (ref :368-390)
 
@@ -434,7 +434,12 @@ class MapStore:
             Tp[:3, :3] = self.kf_R[parent]
             Tp[:3, 3] = self.kf_t[parent]
             self.kf_Tcp[kid] = Tc @ np.linalg.inv(Tp)
-        children = np.nonzero(self.parent == kid)[0]
+        # live children only: a child culled earlier keeps its parent, as
+        # its kf_Tcp is relative to that parent (the reference's culled
+        # KF leaves its parent's child set, src/KeyFrame.cc:540). The JAX
+        # package re-parents culled children too, which breaks their
+        # trajectory chain (ROADMAP.md, faults found in the port).
+        children = np.nonzero((self.parent == kid) & self.kf_exists)[0]
         # reference runs a best-covisibility adoption loop; adopting the
         # grandparent preserves tree connectivity with the same asymptotics
         self.parent[children] = parent
@@ -548,7 +553,7 @@ class MapStore:
     # device-resident point columns (refreshed per map version)
     # ------------------------------------------------------------------
 
-    def device_point_arrays(self, device=None):
+    def device_point_arrays(self, device=None, snapshot: bool = False):
         """Device-resident map-point columns the per-frame tracking steps
         gather from. When the map version changes, only the DIRTY rows
         are shipped and copied into the columns with index_copy_.
@@ -556,24 +561,32 @@ class MapStore:
         The update is in place: safe on the synchronous tracking path,
         which holds no snapshot of the columns across frames (every
         frame's launches are complete once its packed result has been
-        copied to the host, before the next call here). `device`
-        defaults to the card."""
-        device = default_device(device)
+        copied to the host, before the next call here). snapshot=True
+        returns device copies of the updated columns instead, which
+        nothing writes afterwards: the async pipeline publishes those to
+        frames that are still in flight when the map changes again (a
+        device-to-device copy of ~70 B per point, queued on the caller's
+        stream after the update). `device` defaults to the card."""
+        cols = self._updated_columns(default_device(device))
+        if snapshot:
+            return {name: col.clone() for name, col in cols.items()}
+        return cols
+
+    def _updated_columns(self, device: torch.device):
         if (self._dev is not None and self._dev_device == device
                 and self._dev_version == self.version):
             return self._dev
         n_dirty = int(self._dirty_mp.sum())
         if (self._dev is None or self._dev_device != device
                 or n_dirty > self.M // 4):
-            self._dev = {name: torch.as_tensor(col, device=device)
+            self._dev = {name: to_device(col, device)
                          for name, col in self._point_columns(slice(None))}
             self._dev_device = device
         elif n_dirty > 0:
             rows = np.nonzero(self._dirty_mp)[0]
-            idx = torch.as_tensor(rows, device=device)
+            idx = to_device(rows, device)
             for name, col in self._point_columns(rows):
-                self._dev[name].index_copy_(0, idx,
-                                            torch.as_tensor(col, device=device))
+                self._dev[name].index_copy_(0, idx, to_device(col, device))
         self._dirty_mp[:] = False
         self._dev_version = self.version
         return self._dev

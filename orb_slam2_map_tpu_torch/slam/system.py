@@ -7,11 +7,13 @@ reset and shutdown, and the trajectory savers.
 
 Local mapping runs as a host-orchestrated phase inside keyframe creation
 by default, or on a worker thread fed by a queue (async_mapping=True).
+`track_rgbd_async` + `flush` drive the asynchronous RGB-D pipeline
+(slam/async_pipeline.py), which brings its own mapping threads.
 
 Parts of the JAX package's facade that belong to later slices of the
 port (ROADMAP.md) raise NotImplementedError naming that slice: loop
-closing and its background global BA, dense mapping, the asynchronous
-RGB-D pipeline, final_optimize, monocular tracking and map save/load.
+closing and its background global BA, dense mapping, final_optimize,
+monocular tracking and map save/load.
 """
 
 from __future__ import annotations
@@ -52,6 +54,7 @@ class SLAMSystem:
                  enable_dense_mapping: bool = False,
                  async_mapping: bool = False,
                  background_gba: bool = False,
+                 pipeline_depth: int = 24,
                  max_keyframes: int = 512, max_points: int = 1 << 16,
                  device=None):
         if enable_loop_closing:
@@ -79,6 +82,33 @@ class SLAMSystem:
             self._worker = threading.Thread(target=self._mapping_loop,
                                             daemon=True)
             self._worker.start()
+        self._pipeline = None
+        self._pipeline_depth = pipeline_depth
+
+    # ------------------------------------------------------------------
+    # pipelined (asynchronous) tracking
+    # ------------------------------------------------------------------
+
+    @property
+    def pipeline(self):
+        """The AsyncRGBDPipeline, made on first use: a device-resident
+        tracking recurrence with background supervision. track_rgbd_async
+        + flush is the throughput path; track_rgbd stays the synchronous
+        one."""
+        if self._pipeline is None:
+            from .async_pipeline import AsyncRGBDPipeline
+
+            self._pipeline = AsyncRGBDPipeline(
+                self.cfg, self.tracker, local_mapper=self.local_mapper,
+                max_in_flight=self._pipeline_depth)
+        return self._pipeline
+
+    def track_rgbd_async(self, timestamp: float, gray, depth, rgb=None):
+        """Non-blocking frame submission ([H, W] numpy gray and depth in
+        metres); poses are recovered from trajectory(), results lag by
+        up to the pipeline depth."""
+        self._require(Sensor.RGBD)
+        self.pipeline.submit(timestamp, gray, depth, rgb=rgb)
 
     # ------------------------------------------------------------------
 
@@ -132,16 +162,12 @@ class SLAMSystem:
     def track_monocular(self, timestamp: float, gray):
         raise _not_ported("monocular tracking", "stereo-and-monocular")
 
-    @property
-    def pipeline(self):
-        raise _not_ported("the asynchronous RGB-D pipeline", "async-pipeline")
-
-    def track_rgbd_async(self, timestamp: float, gray, depth, rgb=None):
-        raise _not_ported("the asynchronous RGB-D pipeline", "async-pipeline")
-
     def flush(self):
-        """Block until the mapping worker has processed every queued
-        keyframe (async_mapping=True; a no-op otherwise)."""
+        """Block until the async pipeline has supervised every submitted
+        frame, then until the mapping worker has processed every queued
+        keyframe (each a no-op when not in use)."""
+        if self._pipeline is not None:
+            self._pipeline.flush()
         if self._worker is not None:
             self._queue.join()
 
@@ -165,6 +191,8 @@ class SLAMSystem:
                           "loop-closing and global-BA")
 
     def shutdown(self):
+        if self._pipeline is not None:
+            self._pipeline.shutdown()
         if self._worker is not None:
             self._running = False
             self._worker.join(timeout=5.0)

@@ -123,8 +123,7 @@ def test_unported_parts_raise():
     s = SLAMSystem(cfg, Sensor.RGBD, enable_loop_closing=False,
                    max_keyframes=8, max_points=256, device="cpu")
     for call in (lambda: s.track_monocular(0.0, None),
-                 lambda: s.track_rgbd_async(0.0, None, None),
-                 lambda: s.pipeline, lambda: s.final_optimize(),
+                 lambda: s.final_optimize(),
                  lambda: s.save_map("x"), lambda: s.load_map("x")):
         with pytest.raises(NotImplementedError):
             call()

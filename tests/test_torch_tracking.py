@@ -14,6 +14,7 @@
   that the package imports without JAX.
 """
 
+import copy
 import os
 import subprocess
 import sys
@@ -35,6 +36,7 @@ from orb_slam2_map_tpu_torch.geom.camera import PinholeCamera as TCam
 from orb_slam2_map_tpu_torch.io import synthetic as tsyn
 from orb_slam2_map_tpu_torch.slam import pipeline_step as tps
 from orb_slam2_map_tpu_torch.slam.mapstore import MapStore as TMapStore
+from orb_slam2_map_tpu_torch.slam.tracking import FrameLog
 from orb_slam2_map_tpu_torch.slam.tracking import Tracker as TTracker
 
 from test_torch_kernels import _t
@@ -243,10 +245,127 @@ def test_mapstore_state_and_device_columns(trackers):
     assert cols2["mp_desc"][ids[0]].tolist() == [-1] * 8
 
 
-def test_relocalization_is_not_ported(trackers):
-    _, _, tt, _ = trackers
-    with pytest.raises(NotImplementedError):
-        tt._relocalize(tt.last_frame)
+def _map_copy(jm):
+    """The port's MapStore holding the JAX map's state."""
+    return TMapStore.from_arrays(
+        {k: getattr(jm, k) for k in TMapStore._STATE_FIELDS}
+        | dict(_next_kf=jm._next_kf, _next_mp=jm._next_mp,
+               kf_origin=jm.kf_origin, version=jm.version))
+
+
+def _lost_pair(cfg, jt):
+    """A JAX and a port tracker, LOST, over copies of the same map."""
+    jl = JTracker(cfg, copy.deepcopy(jt.map), local_mapper=None)
+    tl = TTracker(port_config(cfg), _map_copy(jt.map), local_mapper=None,
+                  device="cpu")
+    for tr in (jl, tl):
+        tr.state = tr.state.__class__.LOST
+        tr.velocity = None
+        tr.frame_id = jt.frame_id
+    return jl, tl
+
+
+def test_relocalization_parity(sweep, trackers):
+    """Relocalization of a LOST tracker against the JAX tracker's map,
+    both packages on the same frames: the same candidate keyframe,
+    camera centres within 1 mm and rotations within 1e-3 rad of each
+    other, inlier counts within 3, and centres within 2 cm of ground
+    truth (the map frame is the first camera's)."""
+    cfg, _, Twc, ts, frames = sweep
+    jt, _, _, _ = trackers
+    jl, tl = _lost_pair(cfg, jt)
+    to_map = np.linalg.inv(Twc[0])
+    for i in (5, 12, 21):
+        gray, depth, _ = frames[i]
+        jl.frame_id = tl.frame_id = 100 + i
+        ok_j, f_j, obs_j = jl._relocalize(jframe.build_rgbd_frame(cfg, gray, depth))
+        ok_t, f_t, obs_t = tl._relocalize(
+            tps.frame_mod.build_rgbd_frame(port_config(cfg), gray, depth,
+                                           device="cpu"))
+        assert ok_j and ok_t, (i, ok_j, ok_t)
+        assert jl.ref_kf == tl.ref_kf, (i, jl.ref_kf, tl.ref_kf)
+        Rj, tj = np.asarray(f_j.R), np.asarray(f_j.t)
+        c_j, c_t = -Rj.T @ tj, -f_t.R.T @ f_t.t
+        assert np.linalg.norm(c_t - c_j) <= 1e-3, (i, c_t, c_j)
+        cos = np.clip(0.5 * (np.trace(f_t.R @ Rj.T) - 1.0), -1.0, 1.0)
+        assert np.arccos(cos) <= 1e-3, (i, np.arccos(cos))
+        assert abs(int((obs_t >= 0).sum()) - int((obs_j >= 0).sum())) <= 3
+        c_gt = (to_map @ Twc[i])[:3, 3]
+        assert np.linalg.norm(c_t - c_gt) <= 0.02, (i, c_t, c_gt)
+    # through the state machine: LOST -> relocalized -> OK, with the
+    # after-reloc window opened at this frame
+    gray, depth, _ = frames[8]
+    tl.frame_id = 200
+    tl.state, tl.velocity = tl.state.__class__.LOST, None
+    assert tl.track_rgbd(ts[8], gray, depth) is not None
+    assert tl.state.name == "OK" and tl.last_reloc_frame_id == 201
+
+
+def test_reloc_motion_gate_parity(sweep, trackers):
+    """_reloc_aliased on a constructed failure time, supervised pose and
+    log history: the same accept/reject decisions in both packages."""
+    from orb_slam2_map_tpu.slam.tracking import FrameLog as JLog
+    from orb_slam2_map_tpu_torch.slam.tracking import FrameLog as TLog
+
+    cfg, _, _, _, _ = sweep
+    jt, _, _, _ = trackers
+    jl, tl = _lost_pair(cfg, jt)
+    kfs = jt.map.keyframe_ids()
+    rng = np.random.default_rng(0)
+    for tr, Log in ((jl, JLog), (tl, TLog)):
+        assert not tr._reloc_aliased(np.eye(3, dtype=np.float32),
+                                     np.zeros(3, np.float32))  # no failure
+        tr.failure_ts = [1.0]
+        tr.async_pose = (np.eye(3, dtype=np.float32),
+                         np.asarray([0.0, 0.0, -0.1], np.float32))
+        tr._cur_ts = 1.5
+        tr.logs = []
+    for k in range(6):
+        Tcr = np.eye(4, dtype=np.float32)
+        Tcr[:3, 3] = [-0.05 * k, 0.0, 0.01 * k]
+        for tr, Log in ((jl, JLog), (tl, TLog)):
+            tr.logs.append(Log(timestamp=0.9 + 0.1 * k,
+                               ref_kf=int(kfs[k % len(kfs)]), Tcr=Tcr,
+                               lost=(k == 2)))
+    decisions = []
+    for jump in (0.0, 0.2, 0.6, 0.9, 1.5, 3.0):
+        d = rng.normal(size=3)
+        t = (-jump * d / np.linalg.norm(d)).astype(np.float32)
+        R = np.eye(3, dtype=np.float32)
+        a, b = jl._reloc_aliased(R, t), tl._reloc_aliased(R, t)
+        assert a == b, (jump, a, b)
+        decisions.append(a)
+    assert any(decisions) and not all(decisions), decisions
+    for tr in (jl, tl):
+        tr._cur_ts = 5.0                       # outside the 3 s window
+    assert not jl._reloc_aliased(R, t) and not tl._reloc_aliased(R, t)
+
+
+def test_erase_keyframe_keeps_culled_chains():
+    """Culling a keyframe whose child was culled before it leaves the
+    child's parent as it was (the child's kf_Tcp is relative to that
+    parent), and the trajectory composes a chain of culled keyframes as
+    Trw * Tcp: a frame logged against the child keeps its pose. (The JAX
+    package re-parents the culled child and composes it against its
+    grandparent.)"""
+    rng = np.random.default_rng(2)
+    m = TMapStore(8, 64, 16)
+    for k in range(4):
+        kid = m.alloc_keyframe()
+        R, _ = np.linalg.qr(rng.normal(size=(3, 3)))
+        m.kf_R[kid] = (R * np.sign(np.linalg.det(R))).astype(np.float32)
+        m.kf_t[kid] = rng.normal(size=3).astype(np.float32)
+        m.parent[kid] = kid - 1
+    Tcw2 = m.kf_Tcw(2)
+    m.erase_keyframe(2)
+    m.erase_keyframe(1)
+    assert m.parent[2] == 1 and m.parent[3] == 0
+    tr = TTracker(port_config(small_config()), m, device="cpu")
+    Tcr = np.eye(4, dtype=np.float32)
+    Tcr[:3, 3] = [0.1, -0.2, 0.3]
+    tr.logs.append(FrameLog(timestamp=0.0, ref_kf=2, Tcr=Tcr, lost=False))
+    _, Twc = tr.trajectory(refine=False)
+    np.testing.assert_allclose(Twc[0], np.linalg.inv(Tcr @ Tcw2), atol=1e-5)
 
 
 def test_renderer_parity(sweep):
