@@ -32,13 +32,23 @@ script exits non-zero without the final line:
    per-stage times of its profile and the open-gate share in tracking
    and in local mapping;
 8. async: bench.py's pass 1 at full width, SLAMSystem(Sensor.RGBD, local
-   mapping, no loop closing) over the 240-frame noisy 640x480 sweep
-   through track_rgbd_async + flush: fps, 0 lost frames, raw ATE <= 2 cm,
-   >= 3 gated_nn launches on the dispatch thread per async frame, the
-   pipeline's stage means, no worker error;
+   mapping, no loop closing) over the first 120 frames of its 240-frame
+   noisy 640x480 sweep through track_rgbd_async + flush: fps, 0 lost
+   frames, raw ATE <= 2 cm, >= 3 gated_nn launches on the dispatch thread
+   per async frame, the pipeline's stage means, no worker error;
 9. recovery: an async run with a 4-frame blackout must end OK (which
    branch ran, relocalization or reset, is printed);
-10. the kernels' JSON line, the card line, then the result line.
+10. loop: the default SLAMSystem(Sensor.RGBD) — local mapping, loop
+   closing, synchronous global BA — over bench.py's full-system orbit
+   cut to 240 frames (640x480, SensorNoiseModel(seed=1)), then
+   final_optimize and trajectory: >= 1 loop closed, <= 2 lost frames,
+   raw ATE <= 4 cm after final_optimize; loop closer stage means, global
+   BA iterations, gated_nn launches from the loop closer and the
+   open-gate share of its standalone has1 x has2 call; then a kidnap
+   relocalized through the place database, one BackgroundGBA launch on
+   the final map, and the kernel held bit-exactly against its plain
+   version on the standalone call's captured inputs, timed;
+11. the kernels' JSON line, the card line, then the result line.
 
 Each kernel counts its launches; the counts are set to 0 right before a
 path runs and read right after, and every kernel of a path must have
@@ -67,7 +77,13 @@ N_STEREO = 60           # stereo: 6 s of 10 fps KITTI-rate data
 # 40 frames; at 1 m the keyframe policy inserts keyframes and local
 # mapping runs
 STEREO_SWEEP_AMPLITUDE = 1.0
-N_ASYNC = 240           # bench.py pass 1: the 240-frame noisy sweep
+# bench.py pass 1 is the 240-frame noisy sweep; its first 120 frames
+# keep the whole script within half its time limit beside [loop]
+N_ASYNC = (120, 240)    # (frames run, frames of the sweep)
+# [loop]: bench.py's full-system orbit (bench.py:361-363, 600 frames) cut
+# to 240 frames; it still revisits its start (2.4 pi)
+N_LOOP = 240
+LOOP_ATE_GATE_M = 0.04  # the JAX package's gate for the loop scenario
 # recovery run: the first 70 frames of a 90-frame sweep (the sweep's
 # speed is set by its length), frames 50-53 replaced by featureless noise
 N_RECOVERY = (70, 90)
@@ -617,21 +633,27 @@ class ThreadLaunches:
         return self.by_thread.get(threading.get_ident(), 0)
 
 
+def _reloc_counts():
+    """(candidates ranked, candidates tried) by every relocalization since
+    the profiler's last reset, from the tracker's samples."""
+    from orb_slam2_map_tpu_torch.utils import profiling
+
+    summary = profiling.PROFILER.summary()
+    return (int(summary.get("tracking/reloc_candidates", {}).get("total_s", 0)),
+            summary.get("tracking/reloc_tried", {}).get("count", 0))
+
+
 def phase_reloc(device, card, tracker, seq, align):
     """Kidnap the [slice] tracker at three points of its sweep (LOST, no
     velocity, then that frame): it must relocalize, within 2 cm of the
     aligned ground truth."""
     from orb_slam2_map_tpu_torch.ops import gated_nn_cuda
-    from orb_slam2_map_tpu_torch.slam import search, tracking
+    from orb_slam2_map_tpu_torch.slam import tracking
 
     A_R, A_t = align
-    match = search.match_frame_to_kf
     relocalize = tracker._relocalize
-    stats = {"candidates": 0, "ms": [], "launches": []}
-
-    def counted_match(*args, **kwargs):
-        stats["candidates"] += 1
-        return match(*args, **kwargs)
+    stats = {"ms": [], "launches": []}
+    tried0 = _reloc_counts()[1]
 
     def timed(f):
         torch.cuda.synchronize()
@@ -644,7 +666,6 @@ def phase_reloc(device, card, tracker, seq, align):
         return out
 
     errs = []
-    search.match_frame_to_kf = counted_match
     tracker._relocalize = timed
     _reset_launches()
     try:
@@ -658,9 +679,9 @@ def phase_reloc(device, card, tracker, seq, align):
             c = A_R @ (-pose[:3, :3].T @ pose[:3, 3]) + A_t
             errs.append(float(np.linalg.norm(c - seq.gt_Twc[i][:3, 3])))
     finally:
-        search.match_frame_to_kf = match
         del tracker._relocalize
     launches = _read_launches()
+    stats["candidates"] = _reloc_counts()[1] - tried0
     print(f"[reloc] {len(RELOC_FRAMES)} kidnaps (frames {RELOC_FRAMES}) "
           f"relocalized against {tracker.map.n_keyframes()} keyframes: "
           f"centre error (cm) {np.round(np.asarray(errs) * 100, 3).tolist()}, "
@@ -711,7 +732,9 @@ def phase_async(device, card, n_frames=N_ASYNC):
     from orb_slam2_map_tpu_torch.slam import pipeline_step
     from orb_slam2_map_tpu_torch.utils import profiling
 
-    slam, seq, frames = _async_system(device, n_frames)
+    slam, seq, frames = _async_system(device, n_frames[1])
+    n_frames = n_frames[0]
+    frames = frames[:n_frames]
     per_step = []
     fused = pipeline_step.fused_frame_step
     torch.cuda.synchronize()
@@ -746,7 +769,8 @@ def phase_async(device, card, n_frames=N_ASYNC):
               and k != "pipeline/fetch_batchsz"}
     batch = summary.get("pipeline/fetch_batchsz", {}).get("mean_ms", 0.0) / 1e3
     dispatch_ms = summary.get("pipeline/dispatch", {}).get("mean_ms", float("nan"))
-    print(f"[async] {n_frames} frames 640x480 through track_rgbd_async + flush "
+    print(f"[async] first {n_frames} frames of the {len(seq)}-frame 640x480 "
+          f"sweep through track_rgbd_async + flush "
           f"(pipeline depth {slam._pipeline_depth}): {n_frames / wall:.3f} fps "
           f"({wall:.2f} s wall), lost {lost}, keyframes "
           f"{slam.map.n_keyframes()}, points {slam.map.n_points()}, ATE raw "
@@ -904,6 +928,242 @@ def phase_stereo(device, card, n_frames=N_STEREO):
     return launches
 
 
+def _bucketed(obj, name, density, bucket, counter=None, on_call=None):
+    """Wrap method `name` of `obj` (on the instance): its gated_nn launches
+    go to `bucket` of `density` and, with a counter list, are added to
+    counter[0]; `on_call` is first given the call's arguments."""
+    from orb_slam2_map_tpu_torch.ops import gated_nn_cuda
+
+    method = getattr(obj, name)
+
+    def wrapped(*args, **kwargs):
+        if on_call is not None:
+            on_call(*args, **kwargs)
+        outer = density.bucket
+        before = gated_nn_cuda.LAUNCHES
+        density.bucket = bucket
+        try:
+            return method(*args, **kwargs)
+        finally:
+            density.bucket = outer
+            if counter is not None:
+                counter[0] += gated_nn_cuda.LAUNCHES - before
+
+    setattr(obj, name, wrapped)
+
+
+def _loop_kidnap(slam, seq, align, frame):
+    """The system's tracker kidnapped (LOST, no velocity) at `frame`:
+    relocalization through the place database's BoW-ranked candidates.
+    Returns (centre error m, candidates ranked, candidates tried, ms), the
+    counts read from the tracker's profiler samples."""
+    from orb_slam2_map_tpu_torch.slam import tracking
+    from orb_slam2_map_tpu_torch.utils import profiling
+
+    A_R, A_t = align
+    tracker = slam.tracker
+    ts_i, gray, depth, _ = seq[frame]
+    tracker.state = tracking.TrackingState.LOST
+    tracker.velocity = None
+    profiling.PROFILER.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pose = slam.track_rgbd(ts_i, gray, depth)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    ranked, tried = _reloc_counts()
+    if pose is None or tracker.state != tracking.TrackingState.OK:
+        raise AssertionError(f"[loop] kidnap at frame {frame}: not "
+                             f"relocalized ({ranked} ranked, {tried} tried)")
+    c = A_R @ (-pose[:3, :3].T @ pose[:3, 3]) + A_t
+    return (float(np.linalg.norm(c - seq.gt_Twc[frame][:3, 3])), ranked,
+            tried, ms)
+
+
+def _loop_kernel_row(device, card, captured):
+    """gated_nn on the loop path's real standalone inputs (descriptors and
+    the has1 x has2 gate of the run's last Sim3 attempt, captured in the
+    run): bit-exact against its plain version, open-gate share, times,
+    bound."""
+    from orb_slam2_map_tpu_torch.ops import gated_nn_cuda, matching
+
+    desc1, desc2, has1, has2 = captured
+    t = lambda x: torch.as_tensor(x, device=device)  # noqa: E731
+    a, b = t(desc1.view(np.int32)), t(desc2.view(np.int32))
+    gate = t(has1[:, None] & has2[None, :])
+    n, m = a.shape[0], b.shape[0]
+    idx, best, second = gated_nn_cuda.gated_nn(a, b, gate)
+    torch.cuda.synchronize()
+    ridx, rbest, rsecond = matching.gated_nn_plain(a, b, gate)
+    err = max(float((idx.long() - ridx.long()).abs().max()),
+              float((best - rbest).abs().max()),
+              float((second - rsecond).abs().max()))
+    if not (torch.equal(idx, ridx) and torch.equal(best, rbest)
+            and torch.equal(second, rsecond)):
+        raise AssertionError(f"gated_nn kernel != plain on the loop path's "
+                             f"standalone inputs [{n}x{m}] (max abs err {err})")
+    p1 = _time_ms(lambda: matching.gated_nn_plain(a, b, gate))
+    k1 = _time_ms(lambda: gated_nn_cuda.gated_nn(a, b, gate))
+    k2 = _time_ms(lambda: gated_nn_cuda.gated_nn(a, b, gate))
+    p2 = _time_ms(lambda: matching.gated_nn_plain(a, b, gate))
+    open_pairs = int(gate.sum())
+    bound_ms, bound_by = _bound((n + m) * 32 + n * m + n * 12,
+                                2 * 256 * open_pairs)
+    share = open_pairs / max(n * m, 1)
+    print(f"[loop] gated_nn on the loop path's standalone inputs [{n}x{m}] "
+          f"(has1 x has2, {share:.4f} of pairs open) exact (max abs err "
+          f"{err}); kernel {min(k1, k2):.4f} ms ({k1:.4f}/{k2:.4f}), plain "
+          f"{min(p1, p2):.4f} ms ({p1:.4f}/{p2:.4f}), bound {bound_ms:.5f} "
+          f"ms ({bound_by}), no single PyTorch call | {card}")
+    return dict(shape=(n, m), err=err, ms=min(k1, k2),
+                plain_ms=min(p1, p2), bound_ms=bound_ms, bound_by=bound_by,
+                open_share=share)
+
+
+def phase_loop(device, card, n_frames=N_LOOP):
+    """The slice's main path: the default RGB-D SLAMSystem (loop closing,
+    synchronous global BA) over bench.py's full-system orbit, then
+    final_optimize and trajectory; a kidnap through the BoW candidates;
+    one BackgroundGBA launch on the final map."""
+    from orb_slam2_map_tpu_torch.config import SystemConfig
+    from orb_slam2_map_tpu_torch.io.evaluate import ate_rmse, umeyama_alignment
+    from orb_slam2_map_tpu_torch.io.synthetic import (
+        SensorNoiseModel, SyntheticRGBDSequence, SyntheticWorld,
+        orbit_trajectory, synthetic_camera)
+    from orb_slam2_map_tpu_torch.ops import gated_nn_cuda
+    from orb_slam2_map_tpu_torch.parallel.background import BackgroundGBA
+    from orb_slam2_map_tpu_torch.slam.system import SLAMSystem, Sensor
+    from orb_slam2_map_tpu_torch.utils import profiling
+
+    cam = synthetic_camera()
+    cfg = SystemConfig(camera=cam)
+    world = SyntheticWorld(cam=cam, seed=0, device=device)
+    Twc, ts = orbit_trajectory(n_frames, angle_range=2.4 * np.pi)
+    seq = SyntheticRGBDSequence(world, Twc, ts, noise=SensorNoiseModel(seed=1))
+    frames = [seq[i] for i in range(n_frames)]
+    slam = SLAMSystem(cfg, Sensor.RGBD, max_keyframes=1024,
+                      max_points=1 << 17, device=device)
+    lc = slam.loop_closer
+
+    density = GateDensity(device)
+    loop_launches = [0]
+    captured = []
+    _bucketed(lc, "_bow_match", density, "loop standalone (has1 x has2)",
+              on_call=lambda s: captured.append((s.desc1, s.desc2, s.has1,
+                                                 s.has2)))
+    _bucketed(lc, "process_keyframe", density, "loop closing", loop_launches)
+    _bucketed(slam.local_mapper, "process_keyframe", density, "local mapping")
+    profiling.PROFILER.reset()
+    # stage times hold the device work (one synchronisation per stage
+    # boundary)
+    profiling.PROFILER.sync = torch.cuda.synchronize
+    torch.cuda.synchronize()
+
+    _reset_launches()
+    wall, lost = [], 0
+    with density:
+        for ts_i, gray, depth, _ in frames:
+            t0 = time.perf_counter()
+            pose = slam.track_rgbd(ts_i, gray, depth)
+            torch.cuda.synchronize()
+            wall.append(time.perf_counter() - t0)
+            lost += pose is None
+        gt = seq.gt_Twc[:, :3, 3]
+        t_raw, T_raw = slam.tracker.trajectory(refine=False)
+        ate_raw0 = ate_rmse(t_raw, T_raw[:, :3, 3], seq.timestamps, gt)
+        t_ref, T_ref = slam.trajectory()
+        ate_ref0 = ate_rmse(t_ref, T_ref[:, :3, 3], seq.timestamps, gt)
+        t0 = time.perf_counter()
+        res = slam.final_optimize()
+        torch.cuda.synchronize()
+        final_s = time.perf_counter() - t0
+        t_raw, T_raw = slam.tracker.trajectory(refine=False)
+        ate_raw = ate_rmse(t_raw, T_raw[:, :3, 3], seq.timestamps, gt)
+        t_ref, T_ref = slam.trajectory()
+        ate_ref = ate_rmse(t_ref, T_ref[:, :3, 3], seq.timestamps, gt)
+    launches = _read_launches()
+    profiling.PROFILER.sync = None
+
+    summary = profiling.PROFILER.summary()
+    stages = {k.split("/", 1)[1]: [round(v["mean_ms"], 3), v["count"]]
+              for k, v in summary.items()
+              if k.startswith("loop_closing/")}
+    gba = {k.split("/", 1)[1]: round(v["mean_ms"] / 1e3, 2)
+           for k, v in summary.items() if k.startswith("global_ba/")}
+    print(f"[loop] {n_frames} frames {cam.width}x{cam.height} (orbit, 2.4 pi, "
+          f"SensorNoiseModel(seed=1)) through SLAMSystem(RGBD) with loop "
+          f"closing: lost {lost}, keyframes {slam.map.n_keyframes()}, points "
+          f"{slam.map.n_points()}, loops closed {lc.n_loops_closed} "
+          f"(query, loop) {lc.closures}, Sim3 attempts {lc.n_sim3_attempts}, "
+          f"ATE raw {ate_raw0 * 100:.3f} cm -> {ate_raw * 100:.3f} cm after "
+          f"final_optimize ({final_s:.2f} s, {res.n_iters} LM / "
+          f"{res.n_cg_iters} CG iterations, {res.n_syncs} host reads in its "
+          f"last round), trajectory() {ate_ref0 * 100:.3f} -> "
+          f"{ate_ref * 100:.3f} cm, median frame "
+          f"{np.median(wall[1:]) * 1e3:.2f} ms (mean "
+          f"{np.mean(wall[1:]) * 1e3:.2f}, max {np.max(wall) * 1e3:.1f}), "
+          f"gated_nn launches from the loop closer {loop_launches[0]}, "
+          f"launches {launches} | {card}")
+    print(f"[loop] loop_closing stages [mean ms, count]: {json.dumps(stages)}; "
+          f"global BA per solve (mean): {json.dumps(gba)} | {card}")
+    print(f"[loop] gate density, {density.report()} | {card}")
+    if lc.n_loops_closed < 1:
+        raise AssertionError("[loop] no loop closed on the revisiting orbit")
+    if lost > 2:
+        raise AssertionError(f"[loop] {lost} lost frames (allowance 2)")
+    if not ate_raw <= LOOP_ATE_GATE_M:
+        raise AssertionError(f"[loop] raw ATE after final_optimize {ate_raw} "
+                             f"m above {LOOP_ATE_GATE_M} m")
+    if loop_launches[0] < 1 or not captured:
+        raise AssertionError("[loop] the loop closer launched no gated_nn")
+
+    # after the path: one background GBA on the final map, a kidnap
+    # relocalized through the BoW candidates (localization mode: no
+    # keyframe, no mapping), the kernel on the captured standalone inputs
+    def ates():
+        t_a, T_a = slam.tracker.trajectory(refine=False)
+        t_b, T_b = slam.trajectory()
+        return (ate_rmse(t_a, T_a[:, :3, 3], seq.timestamps, gt),
+                ate_rmse(t_b, T_b[:, :3, 3], seq.timestamps, gt), T_a, t_a)
+
+    bg = BackgroundGBA(cfg, slam.map, device=device)
+    t0 = time.perf_counter()
+    if not bg.launch(iters=60):
+        raise AssertionError("[loop] BackgroundGBA did not launch")
+    bg.wait(timeout=600.0)
+    bg_ms = (time.perf_counter() - t0) * 1e3
+    merged = bg.poll()
+    ate_bg, ate_bg_ref, T_bg, t_bg = ates()
+    print(f"[loop] BackgroundGBA launch -> wait -> poll on the final map: "
+          f"{bg.last_iters} LM iterations in {bg_ms:.2f} ms, merged {merged}, "
+          f"ATE after: raw {ate_bg * 100:.3f} cm, trajectory() "
+          f"{ate_bg_ref * 100:.3f} cm | {card}")
+    if bg.running():
+        raise AssertionError("[loop] BackgroundGBA still running")
+    if not ate_bg_ref <= LOOP_ATE_GATE_M:
+        raise AssertionError(f"[loop] trajectory() ATE after the background "
+                             f"GBA {ate_bg_ref} m above {LOOP_ATE_GATE_M} m")
+    gt_at = {float(t): g for t, g in zip(seq.timestamps, seq.gt_Twc)}
+    _, A_R, A_t = umeyama_alignment(
+        T_bg[:, :3, 3], np.stack([gt_at[float(t)][:3, 3] for t in t_bg]))
+    slam.activate_localization_mode()
+    err, ranked, tried, ms = _loop_kidnap(slam, seq, (A_R, A_t),
+                                          n_frames // 2)
+    _, ate_kid_ref, _, _ = ates()
+    print(f"[loop] kidnap at frame {n_frames // 2}: relocalized through the "
+          f"place database ({ranked} BoW candidates ranked, {tried} tried) in "
+          f"{ms:.2f} ms, centre error {err * 100:.3f} cm; trajectory() ATE "
+          f"with the replayed frame logged {ate_kid_ref * 100:.3f} cm | {card}")
+    if err > LOOP_ATE_GATE_M:
+        raise AssertionError(f"[loop] kidnap centre error {err} m")
+    if not ate_kid_ref <= LOOP_ATE_GATE_M:
+        raise AssertionError(f"[loop] trajectory() ATE after the kidnap "
+                             f"{ate_kid_ref} m above {LOOP_ATE_GATE_M} m")
+    slam.shutdown()
+    row = _loop_kernel_row(device, card, captured[-1])
+    return launches, loop_launches[0], row
+
+
 def main():
     device, card = phase_device()
     phase_build()
@@ -920,33 +1180,38 @@ def main():
             raise AssertionError(f"the stereo path launched no {name} kernel")
     async_launches, _ = phase_async(device, card)
     phase_recovery(device, card)
-    for path, counts in (("reloc", reloc_launches), ("async", async_launches)):
+    loop_launches, from_closer, loop = phase_loop(device, card)
+    for path, counts in (("reloc", reloc_launches), ("async", async_launches),
+                         ("loop", loop_launches)):
         if counts["gated_nn"] < 1:
             raise AssertionError(f"the {path} path launched no gated_nn kernel")
 
     g = next(r for r in gated_rows if r["shape"] == (4096, 2040))
     h = next(r for r in hamming_rows if r["shape"] == (2040, 2040))
+    paths = {"rgbd": rgbd_launches, "stereo": stereo_launches,
+             "reloc": reloc_launches, "async": async_launches,
+             "loop": loop_launches}
     print(json.dumps({"kernels": [
         {"name": "gated_nn", "route": "cuda",
          "source": "orb_slam2_map_tpu_torch/csrc/gated_nn.cu",
          "replaces": "orb_slam2_map_tpu/ops/pallas_kernels.py:125",
          "launches": stereo_launches["gated_nn"],
-         "launches_by_path": {"rgbd": rgbd_launches["gated_nn"],
-                              "stereo": stereo_launches["gated_nn"],
-                              "reloc": reloc_launches["gated_nn"],
-                              "async": async_launches["gated_nn"]},
+         "launches_by_path": {k: v["gated_nn"] for k, v in paths.items()},
+         "launches_from_loop_closer": from_closer,
          "shape": list(g["shape"]),
          "max_abs_err": max(r["err"] for r in gated_rows),
          "ms": g["ms"], "plain_ms": g["plain_ms"], "bound_ms": g["bound_ms"],
-         "bound_by": g["bound_by"], "library_ms": None},
+         "bound_by": g["bound_by"], "library_ms": None,
+         "loop_standalone": {
+             "shape": list(loop["shape"]), "open_share": loop["open_share"],
+             "max_abs_err": loop["err"], "ms": loop["ms"],
+             "plain_ms": loop["plain_ms"], "bound_ms": loop["bound_ms"],
+             "bound_by": loop["bound_by"]}},
         {"name": "hamming", "route": "cuda",
          "source": "orb_slam2_map_tpu_torch/csrc/hamming.cu",
          "replaces": "orb_slam2_map_tpu/ops/pallas_kernels.py:51",
          "launches": stereo_launches["hamming"],
-         "launches_by_path": {"rgbd": rgbd_launches["hamming"],
-                              "stereo": stereo_launches["hamming"],
-                              "reloc": reloc_launches["hamming"],
-                              "async": async_launches["hamming"]},
+         "launches_by_path": {k: v["hamming"] for k, v in paths.items()},
          "shape": list(h["shape"]),
          "max_abs_err": max(r["err"] for r in hamming_rows),
          "ms": h["ms"], "plain_ms": h["plain_ms"], "bound_ms": h["bound_ms"],

@@ -7,11 +7,13 @@ PyTorch; both Pallas kernels of the JAX package are hand-written CUDA
 C++ for sm_90a under `csrc/`, built on first use (ops/cuda_build.py).
 
 This package imports torch and numpy only: never jax, never the JAX
-package. Ported: the RGB-D tracking slice (`slam.tracking.Tracker`) and
-the stereo system with local mapping (`slam.system.SLAMSystem`, without
-loop closing). Relocalization, loop closing, monocular, dense mapping
-and the async pipeline are later slices (ROADMAP.md). Entry points run
-on the CUDA card unless given `device="cpu"`.
+package. Ported: RGB-D and stereo tracking with relocalization
+(`slam.tracking.Tracker`), the `slam.system.SLAMSystem` with local
+mapping, BoW place recognition (`place/`), loop closing and global BA
+(`slam.loop_closing`, `optim.global_ba`, `parallel.background`), and
+the async RGB-D pipeline without loop closing. Monocular, dense mapping
+and the async pipeline's loop thread are later slices (ROADMAP.md).
+Entry points run on the CUDA card unless given `device="cpu"`.
 """
 
 __version__ = "0.1.0"

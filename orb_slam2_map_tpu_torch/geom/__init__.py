@@ -1,4 +1,4 @@
-from . import se3, camera
+from . import se3, sim3, camera
 from .camera import PinholeCamera
 
-__all__ = ["se3", "camera", "PinholeCamera"]
+__all__ = ["se3", "sim3", "camera", "PinholeCamera"]

@@ -20,6 +20,7 @@ from __future__ import annotations
 import math
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from .orb import top_k, unpack_bits
@@ -52,6 +53,15 @@ def hamming_matrix(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Tensor:
         return hamming_cuda.hamming_matrix(desc_a.contiguous(),
                                            desc_b.contiguous())
     return hamming_matrix_plain(desc_a, desc_b)
+
+
+def popcount_np(x: np.ndarray) -> np.ndarray:
+    """Set bits of each word of a uint32 numpy array (host SWAR popcount;
+    uint32 shifts are logical, unlike the int32 bit-views on the device)."""
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return ((x * 0x01010101) >> 24) & 0xFF
 
 
 def hamming_distance(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Tensor:

@@ -182,14 +182,15 @@ class PnPRansacResult(NamedTuple):
 
 
 def sample_minimal_sets(valid, n_hypotheses: int,
-                        generator: Optional[torch.Generator] = None):
-    """[H, 4] indices drawn with replacement, uniformly over the valid
+                        generator: Optional[torch.Generator] = None,
+                        size: int = 4):
+    """[H, size] indices drawn with replacement, uniformly over the valid
     rows (uniformly over all rows when none is valid), by inverting the
     CDF of the validity weights; no host synchronisation."""
     w = valid.to(torch.float32)
     w = torch.where(valid.any(), w, torch.ones_like(w))
     cdf = torch.cumsum(w, dim=0)
-    u = torch.rand((n_hypotheses, 4), generator=generator,
+    u = torch.rand((n_hypotheses, size), generator=generator,
                    device=valid.device) * cdf[-1]
     idx = torch.searchsorted(cdf, u, right=True)
     return torch.clamp(idx, max=valid.shape[0] - 1)

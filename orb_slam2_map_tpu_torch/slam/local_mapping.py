@@ -10,10 +10,12 @@ matching, local BA) runs as tensor programs on the mapper's device, with
 one upload before and one download after each of them. The host
 bookkeeping is the JAX package's, line for line.
 
-Loop closing's entry points into the mapper (`_fuse_into`,
-`fuse_into_many` and the hand-off of each keyframe to the loop closer
-through `loop_queue`, which stays None here) come with the loop-closing
-slice (ROADMAP.md).
+After each keyframe the mapper hands it to the loop closer
+(`loop_closer.process_keyframe`, inline), and loop closing's
+SearchAndFuse comes back through `fuse_into_many`. The
+hand-off through `loop_queue` to a loop-closing thread of the async
+pipeline comes with the dense slice (ROADMAP.md); until then
+`loop_queue` stays None.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ import torch
 from ..config import SystemConfig
 from ..optim import local_ba
 from ..utils import profiling
-from ..utils.device import default_device
+from ..utils.device import default_device, host_tensor
 from . import mapping_kernels
 from .mapstore import MapStore
 
@@ -44,15 +46,18 @@ def fetch(tensors) -> tuple:
 
 
 class LocalMapper:
-    def __init__(self, cfg: SystemConfig, map_store: MapStore, device=None):
+    def __init__(self, cfg: SystemConfig, map_store: MapStore,
+                 loop_closer=None, device=None):
         self.cfg = cfg
         self.map = map_store
         self.device = default_device(device)
+        self.loop_closer = loop_closer
         self.recent_points: List[np.ndarray] = []  # queues for culling
         self.recent_kf: List[int] = []
         self.enabled = True
-        # keyframe hand-off to a loop-closing thread: comes with loop
-        # closing (ROADMAP.md), None until then
+        # keyframe hand-off to a loop-closing thread (a queue.Queue): the
+        # async pipeline's loop thread comes with the dense slice
+        # (ROADMAP.md); None until then
         self.loop_queue = None
         # set by the async pipeline: local BA runs on its continuous
         # thread instead of inside process_keyframe
@@ -65,10 +70,7 @@ class LocalMapper:
     # ------------------------------------------------------------------
 
     def _dev(self, a, dtype=torch.float32):
-        a = np.asarray(a)
-        if a.dtype == np.uint32:
-            a, dtype = a.view(np.int32), torch.int32
-        return torch.as_tensor(a, dtype=dtype, device=self.device)
+        return host_tensor(a, self.device, dtype)
 
     # ------------------------------------------------------------------
 
@@ -82,7 +84,8 @@ class LocalMapper:
         "full" runs everything, "medium" skips local BA and keyframe
         culling, "light" also skips triangulation and fusion, so that
         keyframe creation never waits on refinement. With external_ba
-        the local BA runs on the pipeline's continuous-BA thread."""
+        the local BA runs on the pipeline's continuous-BA thread. Then
+        the keyframe goes to the loop closer, if there is one."""
         if not self.enabled:
             return
         with profiling.stage("local_mapping"):
@@ -101,6 +104,13 @@ class LocalMapper:
             if effort == "full":
                 with self.lock:
                     self._cull_keyframes(kid)
+        if self.loop_queue is not None:
+            # a loop-closing thread of its own (reference:
+            # src/LoopClosing.cc:58-102)
+            self.loop_queue.put(kid)
+        elif self.loop_closer is not None:
+            with profiling.stage("loop_closing"):
+                self.loop_closer.process_keyframe(kid)
 
     # ------------------------------------------------------------------
 
@@ -276,6 +286,23 @@ class LocalMapper:
                 m.update_point_stats(
                     own, np.asarray(self.cfg.orb.scale_factors, np.float32))
             m.update_connections(kid)
+
+    def fuse_into_many(self, targets, mids: np.ndarray):
+        """Fuse points `mids` into many keyframes: one launch per target,
+        one download, one bookkeeping round (loop closing's SearchAndFuse
+        over the corrected neighbourhood, reference
+        src/LoopClosing.cc:585-611)."""
+        targets = [int(t) for t in targets]
+        if len(targets) == 0 or len(mids) == 0:
+            return
+        res = self._fuse_dispatch(targets, mids)
+        ok_b, kp_b = fetch((res.ok, res.kp_idx))
+        batches = []
+        for j, nb in enumerate(targets):
+            rows = np.nonzero(ok_b[j])[0]
+            batches.append((nb, mids, rows, kp_b[j][rows]))
+        with profiling.stage("local_mapping/apply_fuse"):
+            self.apply_fuse_round(batches)
 
     def _fuse_dispatch(self, targets: List[int], mids: np.ndarray
                        ) -> mapping_kernels.FuseMatchResult:

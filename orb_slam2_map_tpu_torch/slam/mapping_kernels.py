@@ -10,10 +10,11 @@ results with numpy masks afterwards.
 The JAX package vmaps the pair program over the neighbours; here the
 `_batch` forms loop over them, one gated-NN kernel launch
 (csrc/gated_nn.cu) per pair, and stack the results. The JAX package
-also pads candidate point sets to power-of-two buckets so that XLA
-compiles one program per bucket; PyTorch compiles nothing, and padded
-rows are gated out and change no result, so the port takes the sets as
-they come.
+also pads candidate point sets to power-of-two buckets
+(`bucket_size`) so that XLA compiles one program per bucket; PyTorch
+compiles nothing, and padded rows are gated out and change no result,
+so the port takes the sets as they come. Loop closing's Sim3-guided
+widening (`search_by_sim3`) lives here too.
 """
 
 from __future__ import annotations
@@ -117,6 +118,71 @@ def fuse_match(cfg: SystemConfig, R, t, mp_pos, mp_desc,
     keep = matching.resolve_duplicates(res.idx, res.dist, res.ok,
                                        kf_xy.shape[0])
     return FuseMatchResult(kp_idx=res.idx, ok=keep)
+
+
+class Sim3SearchResult(NamedTuple):
+    match12: torch.Tensor   # [N1] keypoint of KF2 agreed per KF1 keypoint (-1: none)
+    ok: torch.Tensor        # [N1] bool
+
+
+def search_by_sim3(cfg: SystemConfig, R12, t12, s12,
+                   Xc1, has1, desc1, level1, mind1, maxd1, xy1, already1,
+                   Xc2, has2, desc2, level2, mind2, maxd2, xy2, already2,
+                   ) -> Sim3SearchResult:
+    """Sim3-guided match widening between two keyframes (reference:
+    src/ORBmatcher.cc:1102-1326 SearchBySim3, th=7.5): transform each
+    KF's bound map points into the other camera with the estimated S12
+    (and S21 = S12^-1), project, gate by scale band / predicted level /
+    radius, gated-NN in both directions (one kernel launch each), and
+    keep the mutual agreements.
+
+    Inputs are per-keypoint tensors at full capacity: XcK = camera-K-frame
+    position of the map point bound to each keypoint, hasK = bound and
+    alive, alreadyK = keypoint in an existing match (kept as it is)."""
+    cam = cfg.camera
+    n_levels = cfg.orb.n_levels
+    dev = Xc1.device
+    sf = _table(cfg.orb.scale_factors, dev)
+    log_sf = torch.log(torch.tensor(cfg.orb.scale_factor,
+                                    dtype=torch.float32, device=dev))
+    th = 7.5
+
+    sR12 = s12 * R12
+    sR21 = (1.0 / s12) * R12.T
+    t21 = -sR21 @ t12
+
+    def one_direction(Xc_src, src_ok, desc_src, mind, maxd,
+                      sR, tt, xy_dst, level_dst, dst_ok, desc_dst):
+        Xc = Xc_src @ sR.T + tt
+        z = Xc[..., 2]
+        zs = torch.clamp(z, min=1e-9)
+        u = cam.fx * Xc[..., 0] / zs + cam.cx
+        v = cam.fy * Xc[..., 1] / zs + cam.cy
+        dist = torch.linalg.norm(Xc, dim=-1)   # ref: dist3D = |p3Dc|
+        visible = (src_ok & (z > 0.0)
+                   & (u >= 0) & (u < cam.width)
+                   & (v >= 0) & (v < cam.height)
+                   & (dist >= 0.8 * mind) & (dist <= 1.2 * maxd))
+        ratio = torch.clamp(maxd, min=1e-9) / torch.clamp(dist, min=1e-9)
+        pred = torch.clamp(torch.ceil(torch.log(ratio) / log_sf)
+                           .to(torch.int32), 0, n_levels - 1)
+        radius = th * sf[pred.long()]
+        gate = (matching.window_gate(torch.stack([u, v], 1), xy_dst, radius)
+                & matching.level_gate(pred, level_dst,
+                                      min_delta=-1, max_delta=0)
+                & visible[:, None] & dst_ok[None, :])
+        res = matching.gated_nn(desc_src, desc_dst, gate, max_dist=100.0)
+        return torch.where(res.ok & visible, res.idx, -1)
+
+    m12 = one_direction(Xc1, has1 & ~already1, desc1, mind1, maxd1,
+                        sR21, t21, xy2, level2, has2 & ~already2, desc2)
+    m21 = one_direction(Xc2, has2 & ~already2, desc2, mind2, maxd2,
+                        sR12, t12, xy1, level1, has1 & ~already1, desc1)
+
+    # mutual agreement (reference :1300-1320)
+    back = m21[torch.clamp(m12, min=0)]
+    agree = (m12 >= 0) & (back == torch.arange(Xc1.shape[0], device=dev))
+    return Sim3SearchResult(match12=torch.where(agree, m12, -1), ok=agree)
 
 
 def triangulate_pairs_batch(cfg: SystemConfig, R1, t1,

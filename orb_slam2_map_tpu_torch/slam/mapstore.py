@@ -23,6 +23,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..ops.matching import popcount_np
 from ..utils.device import default_device, to_device
 
 COVIS_EDGE_MIN = 15  # keep covisibility edge if weight >= 15 (ref :368-390)
@@ -526,7 +527,7 @@ class MapStore:
         for p in np.nonzero(has)[0]:
             d = descs[offsets[p]:offsets[p + 1]]
             x = d[:, None, :] ^ d[None, :, :]
-            dd = _popcount_np(x).sum(axis=-1)
+            dd = popcount_np(x).sum(axis=-1)
             chosen[p] = d[int(np.argmin(np.median(dd, axis=1)))]
         self.mp_desc[mids[has]] = chosen[has]
         self._dirty_mp[mids] = True
@@ -615,33 +616,35 @@ class MapStore:
 
     @classmethod
     def from_arrays(cls, arrays: dict) -> "MapStore":
-        """MapStore holding the given state: numpy arrays named as the
-        MapStore attributes in _STATE_FIELDS (e.g. taken from the JAX
-        package's MapStore), plus optional cursors (_next_kf, _next_mp,
-        kf_origin, version, loop_edges). Descriptors may be uint32 or
-        int32 bit-views."""
+        """A new MapStore, sized from the arrays, holding their state
+        (see load_arrays)."""
         K, N = arrays["kf_obs"].shape
-        M = arrays["mp_exists"].shape[0]
-        ms = cls(K, M, N)
-        for k in cls._STATE_FIELDS:
+        ms = cls(K, arrays["mp_exists"].shape[0], N)
+        ms.load_arrays(arrays)
+        return ms
+
+    def load_arrays(self, arrays: dict) -> None:
+        """Take over the given state: numpy arrays named as the MapStore
+        attributes in _STATE_FIELDS (e.g. the fields of the JAX package's
+        MapStore, which has the same names), plus optional cursors
+        (_next_kf, _next_mp, kf_origin, version, loop_edges). Every array
+        is copied; its shape must be this store's. Descriptors may be
+        uint32 or int32 bit-views. The device column cache is dropped."""
+        for k in self._STATE_FIELDS:
             if k not in arrays:
                 continue
             a = np.asarray(arrays[k])
-            dst = getattr(ms, k)
+            dst = getattr(self, k)
+            if a.shape != dst.shape:
+                raise ValueError(f"{k}: shape {a.shape}, this store holds "
+                                 f"{dst.shape}")
             if a.dtype != dst.dtype and a.dtype.itemsize == dst.dtype.itemsize \
                     and a.dtype.kind in "iu" and dst.dtype.kind in "iu":
                 a = a.view(dst.dtype)
-            setattr(ms, k, a.astype(dst.dtype, copy=True))
-        ms._next_kf = int(arrays.get("_next_kf", int(ms.kf_exists.sum())))
-        ms._next_mp = int(arrays.get("_next_mp", int(ms.mp_exists.sum())))
-        ms.kf_origin = int(arrays.get("kf_origin", -1))
-        ms.version = int(arrays.get("version", 0))
-        ms.loop_edges = [tuple(e) for e in arrays.get("loop_edges", [])]
-        return ms
-
-
-def _popcount_np(x: np.ndarray) -> np.ndarray:
-    x = x - ((x >> 1) & 0x55555555)
-    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
-    x = (x + (x >> 4)) & 0x0F0F0F0F
-    return ((x * 0x01010101) >> 24) & 0xFF
+            setattr(self, k, a.astype(dst.dtype, copy=True))
+        self._next_kf = int(arrays.get("_next_kf", int(self.kf_exists.sum())))
+        self._next_mp = int(arrays.get("_next_mp", int(self.mp_exists.sum())))
+        self.kf_origin = int(arrays.get("kf_origin", -1))
+        self.version = int(arrays.get("version", 0))
+        self.loop_edges = [tuple(e) for e in arrays.get("loop_edges", [])]
+        self.mark_all_points_dirty()

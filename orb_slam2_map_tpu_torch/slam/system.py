@@ -1,19 +1,23 @@
 """System facade: the public entry point of the SLAM engine.
 
 Port of orb_slam2_map_tpu/slam/system.py, replacing the reference's
-System class (reference: src/System.cc): constructs the map, tracking and
-local mapping, routes frames per sensor type, exposes localization mode,
-reset and shutdown, and the trajectory savers.
+System class (reference: src/System.cc): constructs the map, tracking,
+local mapping, the place database and loop closing, routes frames per
+sensor type, exposes localization mode, reset and shutdown, the final
+global BA and the trajectory savers.
 
 Local mapping runs as a host-orchestrated phase inside keyframe creation
-by default, or on a worker thread fed by a queue (async_mapping=True).
-`track_rgbd_async` + `flush` drive the asynchronous RGB-D pipeline
-(slam/async_pipeline.py), which brings its own mapping threads.
+by default, or on a worker thread fed by a queue (async_mapping=True);
+each keyframe then goes to the loop closer, which corrects the map and
+runs a global BA, synchronously or (background_gba=True) on a worker
+whose result each track_rgbd merges. `track_rgbd_async` + `flush` drive
+the asynchronous RGB-D pipeline (slam/async_pipeline.py), which brings
+its own mapping threads.
 
 Parts of the JAX package's facade that belong to later slices of the
-port (ROADMAP.md) raise NotImplementedError naming that slice: loop
-closing and its background global BA, dense mapping, final_optimize,
-monocular tracking and map save/load.
+port (ROADMAP.md) raise NotImplementedError naming that slice: the async
+pipeline with a loop closer, dense mapping, monocular tracking and map
+save/load.
 """
 
 from __future__ import annotations
@@ -28,10 +32,13 @@ import numpy as np
 from ..config import SystemConfig
 from ..io import trajectory as traj_io
 from ..ops import orb
+from ..optim.global_ba import run_global_ba
+from ..place.database import KeyFrameDatabase
 from ..utils import profiling
 from ..utils.device import default_device
 from . import frame as frame_mod
 from .local_mapping import LocalMapper
+from .loop_closing import LoopCloser
 from .mapstore import MapStore
 from .tracking import Tracker, TrackingState
 
@@ -50,19 +57,13 @@ def _not_ported(what: str, queue_item: str):
 
 class SLAMSystem:
     def __init__(self, cfg: SystemConfig, sensor: Sensor = Sensor.RGBD,
-                 enable_loop_closing: bool = True,
+                 vocabulary=None, enable_loop_closing: bool = True,
                  enable_dense_mapping: bool = False,
                  async_mapping: bool = False,
                  background_gba: bool = False,
                  pipeline_depth: int = 24,
                  max_keyframes: int = 512, max_points: int = 1 << 16,
                  device=None):
-        if enable_loop_closing:
-            raise _not_ported("loop closing (pass enable_loop_closing=False)",
-                              "loop-closing and global-BA")
-        if background_gba:
-            raise _not_ported("background global BA",
-                              "loop-closing and global-BA")
         if enable_dense_mapping:
             raise _not_ported("dense mapping", "dense")
         self.device = default_device(device)
@@ -71,10 +72,28 @@ class SLAMSystem:
         self.map = MapStore(max_keyframes=max_keyframes,
                             max_points=max_points,
                             kp_capacity=orb.total_capacity(cfg.orb))
-        self.local_mapper = LocalMapper(cfg, self.map, device=self.device)
+        self.loop_closer = None
+        self.place_db = None
+        if enable_loop_closing:
+            self.place_db = KeyFrameDatabase(cfg, self.map,
+                                             vocabulary=vocabulary,
+                                             device=self.device)
+            self.loop_closer = LoopCloser(
+                cfg, self.map, self.place_db,
+                fix_scale=sensor != Sensor.MONOCULAR, device=self.device)
+        self.local_mapper = LocalMapper(cfg, self.map,
+                                        loop_closer=self.loop_closer,
+                                        device=self.device)
         self.tracker = Tracker(cfg, self.map,
                                local_mapper=self._mapper_hook(async_mapping),
-                               relocalizer=None, device=self.device)
+                               relocalizer=self.place_db, device=self.device)
+        if self.loop_closer is not None:
+            # re-base the tracker's cached poses when a loop correction
+            # or GBA merge moves the map under it
+            self.loop_closer.transform_listeners.append(
+                self.tracker.apply_map_transform)
+            if background_gba:
+                self.loop_closer.enable_background_gba()
         self._worker = None
         self._queue: "queue.Queue[int]" = queue.Queue()
         if async_mapping:
@@ -94,9 +113,15 @@ class SLAMSystem:
         """The AsyncRGBDPipeline, made on first use: a device-resident
         tracking recurrence with background supervision. track_rgbd_async
         + flush is the throughput path; track_rgbd stays the synchronous
-        one."""
+        one. Not with a loop closer yet: the pipeline's loop-closing
+        thread comes with the dense slice."""
         if self._pipeline is None:
             from .async_pipeline import AsyncRGBDPipeline
+
+            if self.loop_closer is not None:
+                raise _not_ported(
+                    "the async pipeline with loop closing (its loop thread; "
+                    "pass enable_loop_closing=False)", "dense")
 
             self._pipeline = AsyncRGBDPipeline(
                 self.cfg, self.tracker, local_mapper=self.local_mapper,
@@ -145,6 +170,12 @@ class SLAMSystem:
     def track_rgbd(self, timestamp: float, gray, depth, rgb=None):
         self._require(Sensor.RGBD)
         with profiling.stage("track_rgbd"):
+            if self.place_db is not None:
+                self.place_db.maybe_refresh()
+            if self.loop_closer is not None:
+                # merge a finished background global BA (staged
+                # write-back, reference: src/LoopClosing.cc:643-744)
+                self.loop_closer.poll_background()
             return self.tracker.track_rgbd(timestamp, gray, depth, rgb=rgb)
 
     def track_stereo(self, timestamp: float, gray_left, gray_right):
@@ -185,10 +216,24 @@ class SLAMSystem:
 
     def reset(self):
         self.tracker.reset()
+        if self.place_db is not None:
+            self.place_db.clear()
 
     def final_optimize(self, iters: int = 40, rounds: int = 2):
-        raise _not_ported("final_optimize (global BA)",
-                          "loop-closing and global-BA")
+        """Offline polish: drain any background global BA, then run
+        synchronous global BA `rounds` times on the final map (the
+        reference evaluates trajectories saved after Shutdown,
+        src/System.cc:332-347). Returns the last round's GBAResult."""
+        if self.loop_closer is not None and \
+                self.loop_closer.background_gba is not None:
+            self.loop_closer.background_gba.wait(timeout=300.0)
+            self.loop_closer.poll_background()
+        res = None
+        for _ in range(rounds):
+            res = run_global_ba(self.cfg, self.map,
+                                fixed_kf=self.map.kf_origin, iters=iters,
+                                device=self.device)
+        return res
 
     def shutdown(self):
         if self._pipeline is not None:
@@ -197,13 +242,19 @@ class SLAMSystem:
             self._running = False
             self._worker.join(timeout=5.0)
             self._worker = None
+        if self.loop_closer is not None and \
+                self.loop_closer.background_gba is not None:
+            gba = self.loop_closer.background_gba
+            gba.abort()
+            gba.wait(timeout=60.0)
 
     @property
     def tracking_state(self) -> TrackingState:
         return self.tracker.state
 
     def profile_report(self) -> str:
-        """Per-stage timing table (tracking / local mapping)."""
+        """Per-stage timing table (tracking / local mapping / loop
+        closing)."""
         return profiling.PROFILER.report()
 
     # ------------------------------------------------------------------

@@ -15,8 +15,9 @@ copy (`_track_chain`).
 
 Relocalization (LOST state) matches the frame against candidate
 keyframes, solves EPnP-RANSAC (optim/epnp.py) on the matches and
-refines with pose-only LM. Without a place database (`relocalizer`
-None) every keyframe is a candidate, at most 8 per frame.
+refines with pose-only LM. The candidates come from the place database
+(`relocalizer.reloc_candidates`, BoW-ranked), or, without one, are every
+keyframe; at most 8 per frame.
 """
 
 from __future__ import annotations
@@ -108,8 +109,7 @@ class Tracker:
         self.device = default_device(device)
         self.local_mapper = local_mapper
         self.dense_mapper = dense_mapper
-        self.relocalizer = relocalizer  # place-recognition hook: None
-                                        # until the place database is ported
+        self.relocalizer = relocalizer  # place database (reloc_candidates)
         self.state = TrackingState.NO_IMAGES_YET
         self.only_tracking = False      # localization mode (no mapping)
         self.vo_only = False            # mbVO: tracking on temporal VO
@@ -145,6 +145,24 @@ class Tracker:
     # ------------------------------------------------------------------
     # public API
     # ------------------------------------------------------------------
+
+    def apply_map_transform(self, A: np.ndarray):
+        """Re-base cached poses when the map moves discontinuously under
+        the tracker (loop correction / GBA merge; X_new = A @ X_old):
+        Tcw' = Tcw @ A^-1 keeps the motion-model prediction consistent
+        with the corrected map. Registered as a LoopCloser transform
+        listener by SLAMSystem; called under the map lock or in the
+        single-threaded sync phase. The velocity (a relative transform)
+        is invariant."""
+        Ainv = np.linalg.inv(A).astype(np.float32)
+        if self.last_frame is not None:
+            R = np.asarray(self.last_frame.R, dtype=np.float32)
+            t = np.asarray(self.last_frame.t, dtype=np.float32)
+            self.last_frame = frame_mod.set_pose(
+                self.last_frame, R @ Ainv[:3, :3], R @ Ainv[:3, 3] + t)
+        if self.async_pose is not None:
+            R, t = self.async_pose
+            self.async_pose = (R @ Ainv[:3, :3], R @ Ainv[:3, 3] + t)
 
     def track_rgbd(self, timestamp: float, gray, depth, rgb=None
                    ) -> Optional[np.ndarray]:
@@ -629,10 +647,14 @@ class Tracker:
             candidates = self.relocalizer.reloc_candidates(f)
         else:
             candidates = self.map.keyframe_ids()
+        profiling.PROFILER.add_sample("tracking/reloc_candidates",
+                                      float(len(candidates)))
         if len(candidates) == 0:
             return False, f, empty
 
         for kid in candidates[:8]:
+            # one sample per candidate tried (the stage's count)
+            profiling.PROFILER.add_sample("tracking/reloc_tried", 1.0)
             kf_obs = self.map.kf_obs[kid]
             has_mp = (kf_obs >= 0) & self.map.mp_exists[np.clip(kf_obs, 0, None)]
             idx, keep = search.match_frame_to_kf(
@@ -931,7 +953,10 @@ class Tracker:
         # interpolate from anchored neighbors instead
         pre_w = 20.0 / max(self.cfg.camera.fps, 1.0)
         post_w = 45.0 / max(self.cfg.camera.fps, 1.0)
-        for log in self.logs:
+        # in timestamp order (stable): the refinement's kinematic pass
+        # reads each frame's neighbours in time, and a frame tracked again
+        # at an earlier timestamp (a replayed kidnap) logs out of order
+        for log in sorted(self.logs, key=lambda log: log.timestamp):
             if log.lost:
                 continue
             ref = log.ref_kf

@@ -3,6 +3,7 @@ for the CPU."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -16,6 +17,16 @@ def default_device(device=None) -> torch.device:
             "no CUDA device: the port runs on the card by default; pass "
             "device='cpu' to run it on the CPU")
     return torch.device("cuda")
+
+
+def host_tensor(a, device: torch.device, dtype=torch.float32) -> torch.Tensor:
+    """Numpy array `a` as a `dtype` tensor on `device`; uint32 arrays
+    (packed descriptors) become their int32 bit-views, the port's
+    descriptor type."""
+    a = np.asarray(a)
+    if a.dtype == np.uint32:
+        a, dtype = a.view(np.int32), torch.int32
+    return torch.as_tensor(a, dtype=dtype, device=device)
 
 
 def to_device(a, device: torch.device, dtype=None) -> torch.Tensor:

@@ -114,19 +114,23 @@ def test_system_outputs_and_modes(runs, tmp_path):
 
 
 def test_unported_parts_raise():
+    """Dense mapping, monocular tracking, map save/load and the async
+    pipeline with a loop closer raise, naming their ROADMAP slice; loop
+    closing, background GBA and final_optimize are ported."""
     cfg = port_config(stereo_config())
-    for kw in (dict(), dict(enable_loop_closing=True),
-               dict(enable_loop_closing=False, enable_dense_mapping=True),
-               dict(enable_loop_closing=False, background_gba=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            SLAMSystem(cfg, Sensor.STEREO, device="cpu", **kw)
-    s = SLAMSystem(cfg, Sensor.RGBD, enable_loop_closing=False,
-                   max_keyframes=8, max_points=256, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        SLAMSystem(cfg, Sensor.STEREO, device="cpu", enable_loop_closing=False,
+                   enable_dense_mapping=True)
+    s = SLAMSystem(cfg, Sensor.RGBD, background_gba=True, max_keyframes=8,
+                   max_points=256, device="cpu")
+    assert s.loop_closer is not None and s.loop_closer.background_gba
+    assert s.final_optimize() is None           # an empty map: nothing to do
     for call in (lambda: s.track_monocular(0.0, None),
-                 lambda: s.final_optimize(),
-                 lambda: s.save_map("x"), lambda: s.load_map("x")):
-        with pytest.raises(NotImplementedError):
+                 lambda: s.save_map("x"), lambda: s.load_map("x"),
+                 lambda: s.pipeline):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
+    s.shutdown()
 
 
 def test_entry_points_default_to_the_card():
@@ -141,6 +145,21 @@ def test_entry_points_default_to_the_card():
         Tracker(cfg, tmapstore.MapStore(8, 256, 424))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tmapstore.MapStore(8, 256, 424).device_point_arrays()
+    from orb_slam2_map_tpu_torch.parallel.background import BackgroundGBA
+    from orb_slam2_map_tpu_torch.place.database import KeyFrameDatabase
+    from orb_slam2_map_tpu_torch.place.vocabulary import train_vocabulary
+    from orb_slam2_map_tpu_torch.slam.loop_closing import LoopCloser
+
+    desc = np.random.default_rng(0).integers(0, 2 ** 32, (64, 8),
+                                             dtype=np.uint32)
+    voc = train_vocabulary(desc, k=2, L=2)
+    for build in (lambda: KeyFrameDatabase(cfg, tmapstore.MapStore(8, 256, 424)),
+                  lambda: voc.transform(desc),
+                  lambda: voc.bow_sparse(desc),
+                  lambda: LoopCloser(cfg, tmapstore.MapStore(8, 256, 424), None),
+                  lambda: BackgroundGBA(cfg, tmapstore.MapStore(8, 256, 424))):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build()
     img = np.zeros((cfg.camera.height, cfg.camera.width), np.float32)
     for build in (lambda: tframe.build_rgbd_frame(cfg, img, img),
                   lambda: tframe.build_mono_frame(cfg, img),
